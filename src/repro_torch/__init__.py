@@ -1,0 +1,20 @@
+"""repro_torch: the IP-DiskANN streaming index on PyTorch and CUDA.
+
+The PyTorch/CUDA port of the JAX package ``repro``, which it is held
+against.  It imports ``torch`` (and numpy), never JAX.  Entry points
+allocate on the card unless the caller names another device; ``"auto"``
+backends resolve by the device of the state's tensors: the hand-written
+CUDA kernels (``repro_torch/csrc``) on the card, their plain PyTorch
+versions on the CPU.
+"""
+from . import configs, core, kernels  # noqa: F401
+from .core import (  # noqa: F401
+    ANNConfig,
+    IndexState,
+    apply,
+    graph_recall,
+    init_index_state,
+    make_dataset,
+    maybe_consolidate,
+    search_index,
+)

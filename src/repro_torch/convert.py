@@ -1,0 +1,69 @@
+"""Carry an index state across packages as numpy arrays.
+
+The layout is the reference's: ``{"graph": {field: array}, "ext2slot": ...,
+"slot2ext": ..., "n_inserts": ..., ...}`` with the graph fields of
+``GraphState`` in order (``quant`` is None).  A reference state becomes this
+dict with ``repro.core.types.as_numpy_state`` on its ``graph`` plus
+``np.asarray`` on the other leaves; ``index_state_from_numpy`` turns it into
+the port's tensors and ``index_state_to_numpy`` back.  Packed bitmaps are
+uint32 in the reference and int32 with the same bits here
+(``words_from_numpy`` / ``words_to_numpy``).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.types import GraphState, IndexState, resolve_device
+
+_INDEX_LEAVES = ("ext2slot", "slot2ext", "n_inserts", "n_deletes",
+                 "insert_comps", "delete_comps")
+_DTYPES = {np.dtype(np.float32): torch.float32,
+           np.dtype(np.int32): torch.int32,
+           np.dtype(np.bool_): torch.bool}
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        return words_from_numpy(a, device)
+    return torch.from_numpy(np.array(a, copy=True)).to(
+        dtype=_DTYPES[a.dtype], device=device)
+
+
+def graph_state_from_numpy(g: dict, device=None) -> GraphState:
+    dev = resolve_device(device)
+    if g.get("quant") is not None:
+        raise NotImplementedError("the int8 tier is not ported yet")
+    return GraphState(*(_tensor(g[f], dev) for f in GraphState._fields
+                        if f != "quant"), quant=None)
+
+
+def index_state_from_numpy(d: dict, device=None) -> IndexState:
+    """The port's ``IndexState`` from the numpy layout above, on ``device``
+    (default: the card)."""
+    dev = resolve_device(device)
+    return IndexState(graph=graph_state_from_numpy(d["graph"], dev),
+                      **{f: _tensor(d[f], dev) for f in _INDEX_LEAVES})
+
+
+def graph_state_to_numpy(g: GraphState) -> dict:
+    return {f: (None if v is None else v.cpu().numpy())
+            for f, v in g._asdict().items()}
+
+
+def index_state_to_numpy(state: IndexState) -> dict:
+    out = {"graph": graph_state_to_numpy(state.graph)}
+    out.update({f: getattr(state, f).cpu().numpy() for f in _INDEX_LEAVES})
+    return out
+
+
+def words_from_numpy(words, device=None) -> torch.Tensor:
+    """uint32 packed words -> the int32 tensor with the same bits."""
+    a = np.ascontiguousarray(np.asarray(words, np.uint32)).view(np.int32)
+    return torch.from_numpy(a.copy()).to(resolve_device(device))
+
+
+def words_to_numpy(words: torch.Tensor) -> np.ndarray:
+    """int32 packed words -> uint32 numpy with the same bits."""
+    return words.cpu().numpy().astype(np.int32).view(np.uint32)

@@ -1,0 +1,47 @@
+# IP-DiskANN's streaming loop (insert, in-place delete, beam search,
+# recall) on PyTorch tensors, with hand-written CUDA kernels on the card.
+from .api import (
+    UpdatePolicy,
+    apply,
+    available_policies,
+    clone_state,
+    consolidate_if_needed,
+    delete_batch,
+    device_sweep,
+    get_policy,
+    insert_batch,
+    make_update_batch,
+    maybe_consolidate,
+    mixed_update_batch,
+    pad_update_batch,
+    register_policy,
+)
+from .api import search as search_index
+from .backend import (
+    DistanceBackend,
+    available_backends,
+    get_backend,
+    register_backend,
+    resolve_backend,
+)
+from .batched import insert_many_batched, ip_delete_many_batched
+from .consolidate import consolidation_due, light_consolidate
+from .delete import ip_delete, ip_delete_many
+from .insert import insert, insert_many
+from .prune import robust_prune, robust_prune_rows
+from .recall import brute_force_topk, graph_recall, recall_at_k
+from .runbook import make_dataset, make_runbook
+from .search import SearchResult, greedy_search, search_batch
+from .search_batched import batched_greedy_search, resolved_hop_fused
+from .types import (
+    INVALID,
+    KIND_DELETE,
+    KIND_INSERT,
+    ANNConfig,
+    ApplyResult,
+    GraphState,
+    IndexState,
+    UpdateBatch,
+    init_index_state,
+    init_state,
+)

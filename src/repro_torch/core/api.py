@@ -1,0 +1,367 @@
+"""The unified op-stream API (``repro/core/api.py``), the main-path part:
+``apply(state, cfg, batch)`` for updates, ``search(state, cfg, queries)``
+for queries, the ``UpdatePolicy`` registry (``ip`` for now) and the
+consolidation trigger.
+
+Semantics are the reference's, lane for lane: a mixed batch applies all
+insert lanes first (lane order), then all delete lanes (lane order), the
+deletes resolving external ids against the post-insert map.
+``sequential=True`` runs the serial path (each lane sees every earlier
+write); ``sequential=False`` runs the batched phases (searches see the
+graph as of the phase's start).
+
+Where the reference DONATES its state, the port updates the handle's
+tensors IN PLACE: after ``apply`` the caller's old handle and the returned
+one share (mutated) tensors.  ``clone_state`` gives an independent copy.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .batched import insert_many_batched, ip_delete_many_batched
+from .consolidate import consolidation_due, light_consolidate
+from .delete import ip_delete_many
+from .insert import insert_many
+from .search import search_batch
+from .search_batched import next_bucket
+from .types import (
+    INVALID,
+    KIND_DELETE,
+    KIND_INSERT,
+    ANNConfig,
+    ApplyResult,
+    GraphState,
+    IndexState,
+    UpdateBatch,
+    clip_ids,
+)
+
+
+def clone_state(state):
+    """A deep copy of a state (``IndexState`` / ``GraphState`` / any tuple
+    of tensors)."""
+    if isinstance(state, torch.Tensor):
+        return state.clone()
+    if state is None:
+        return None
+    return type(state)(*(clone_state(x) for x in state))
+
+
+# ---------------------------------------------------------------------------
+# Update policies
+# ---------------------------------------------------------------------------
+
+
+class UpdatePolicy:
+    """Pluggable delete strategy + consolidation trigger.  Only policies
+    whose pass runs on the device (``ip``) are ported so far."""
+
+    name = "abstract"
+
+    def delete_many(self, graph: GraphState, cfg: ANNConfig, ps, *,
+                    sequential: bool):
+        raise NotImplementedError
+
+    def should_consolidate_device(self, cfg: ANNConfig,
+                                  graph: GraphState) -> torch.Tensor:
+        return consolidation_due(graph, cfg)
+
+    def consolidate(self, graph: GraphState, cfg: ANNConfig) -> GraphState:
+        raise NotImplementedError
+
+
+_POLICIES: dict = {}
+
+
+def register_policy(name: str):
+    def deco(cls):
+        cls.name = name
+        _POLICIES[name] = cls()
+        return cls
+
+    return deco
+
+
+def available_policies() -> tuple:
+    return tuple(sorted(_POLICIES))
+
+
+def get_policy(name: str) -> UpdatePolicy:
+    try:
+        return _POLICIES[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown update policy {name!r}; "
+            f"available: {available_policies()}"
+        ) from None
+
+
+@register_policy("ip")
+class IPDiskANNPolicy(UpdatePolicy):
+    """In-place deletes (Alg 5); quarantined slots released by the light
+    Alg 6 sweep."""
+
+    def delete_many(self, graph, cfg, ps, *, sequential):
+        fn = ip_delete_many if sequential else ip_delete_many_batched
+        return fn(graph, cfg, ps)
+
+    def consolidate(self, graph, cfg):
+        return light_consolidate(graph, cfg)
+
+
+# ---------------------------------------------------------------------------
+# UpdateBatch constructors
+# ---------------------------------------------------------------------------
+
+
+def make_update_batch(kind, ext_ids, vectors, valid=None,
+                      device=None) -> UpdateBatch:
+    """Assemble an ``UpdateBatch`` from per-lane arrays (no padding), on
+    ``device`` (default: the card)."""
+    dev = torch.device("cuda" if device is None else device)
+    kind = torch.as_tensor(np.asarray(kind), dtype=torch.int32, device=dev)
+    ext_ids = torch.as_tensor(np.asarray(ext_ids), dtype=torch.int32,
+                              device=dev)
+    vectors = torch.as_tensor(np.asarray(vectors, np.float32),
+                              dtype=torch.float32, device=dev)
+    if valid is None:
+        valid = torch.ones((kind.shape[0],), dtype=torch.bool, device=dev)
+    else:
+        valid = torch.as_tensor(np.asarray(valid), dtype=torch.bool,
+                                device=dev)
+    return UpdateBatch(kind=kind, ext_id=ext_ids, vector=vectors,
+                       valid=valid)
+
+
+def pad_update_batch(batch: UpdateBatch, bucket: Optional[int] = None
+                     ) -> UpdateBatch:
+    """Pad a batch up to ``bucket`` lanes (default: the next power of two)
+    with masked no-op lanes."""
+    b = batch.kind.shape[0]
+    bucket = bucket if bucket is not None else next_bucket(b)
+    if b == bucket:
+        return batch
+
+    def pad(arr, fill):
+        extra = torch.full((bucket - b,) + tuple(arr.shape[1:]), fill,
+                           dtype=arr.dtype, device=arr.device)
+        return torch.cat([arr, extra])
+
+    return UpdateBatch(
+        kind=pad(batch.kind, KIND_INSERT),
+        ext_id=pad(batch.ext_id, INVALID),
+        vector=pad(batch.vector, 0.0),
+        valid=pad(batch.valid, False),
+    )
+
+
+def insert_batch(ext_ids, vectors, *, bucket: bool = True,
+                 device=None) -> UpdateBatch:
+    """An insert-only ``UpdateBatch``; duplicate external ids are refused."""
+    ext_ids = np.asarray(ext_ids)
+    if len(np.unique(ext_ids)) != len(ext_ids):
+        raise ValueError("duplicate external ids in one insert batch")
+    b = make_update_batch(np.full((len(ext_ids),), KIND_INSERT), ext_ids,
+                          vectors, device=device)
+    return pad_update_batch(b) if bucket else b
+
+
+def delete_batch(ext_ids, dim: int, *, bucket: bool = True,
+                 device=None) -> UpdateBatch:
+    """A delete-only ``UpdateBatch``; delete lanes carry zero vectors."""
+    ext_ids = np.asarray(ext_ids)
+    b = make_update_batch(np.full((len(ext_ids),), KIND_DELETE), ext_ids,
+                          np.zeros((len(ext_ids), dim), np.float32),
+                          device=device)
+    return pad_update_batch(b) if bucket else b
+
+
+def mixed_update_batch(ins_ext, ins_vectors, del_ext, dim: int,
+                       device=None):
+    """Insert lanes bucket-padded first, delete lanes bucket-padded after.
+    Returns ``(UpdateBatch, split)``."""
+    ins = insert_batch(ins_ext, ins_vectors, device=device)
+    dele = delete_batch(del_ext, dim, device=device)
+    batch = UpdateBatch(*[torch.cat([a, b]) for a, b in zip(ins, dele)])
+    return batch, ins.kind.shape[0]
+
+
+# ---------------------------------------------------------------------------
+# The update front door
+# ---------------------------------------------------------------------------
+
+
+def _drop_scatter(target, idx, values, ok):
+    """``target.at[idx].set(values, mode="drop")`` restricted to ``ok``
+    lanes (torch raises on out-of-range indices, so they are masked)."""
+    sel = torch.nonzero(ok).squeeze(1)
+    if sel.numel():
+        vals = values if values.dim() == 0 else values[sel]
+        target[idx[sel].long()] = vals
+    return target
+
+
+def _apply_impl(state: IndexState, cfg: ANNConfig, batch: UpdateBatch,
+                pol: UpdatePolicy, sequential: bool, split: Optional[int]):
+    dev = state.ext2slot.device
+    b = batch.kind.shape[0]
+    e_cap = state.ext2slot.shape[0]
+    ext_ok = (batch.ext_id >= 0) & (batch.ext_id < e_cap)
+    sext = batch.ext_id.clamp(0, e_cap - 1).long()
+    is_ins = batch.valid & ext_ok & (batch.kind == KIND_INSERT)
+    is_del = batch.valid & ext_ok & (batch.kind == KIND_DELETE)
+    if split is not None:
+        lane = torch.arange(b, device=dev)
+        is_ins = is_ins & (lane < split)
+        is_del = is_del & (lane >= split)
+    graph = state.graph
+
+    # ---- insert phase ------------------------------------------------------
+    ins_fn = insert_many if sequential else insert_many_batched
+    if split is None:
+        graph, ins_stats = ins_fn(graph, cfg, batch.vector, is_ins)
+        ins_slots = ins_stats.slot
+        ins_comps_lane = ins_stats.n_comps
+    else:
+        graph, ins_stats = ins_fn(graph, cfg, batch.vector[:split],
+                                  is_ins[:split])
+        tail = torch.full((b - split,), INVALID, dtype=torch.int32,
+                          device=dev)
+        ins_slots = torch.cat([ins_stats.slot.to(torch.int32), tail])
+        ins_comps_lane = torch.cat([ins_stats.n_comps.to(torch.int32),
+                                    torch.zeros_like(tail)])
+    ok_ins = is_ins & (ins_slots >= 0)
+
+    # rebind: clear the stale reverse entry of a re-inserted external id
+    prev = torch.where(ok_ins, state.ext2slot[sext],
+                       torch.full_like(ins_slots, INVALID))
+    _drop_scatter(state.slot2ext, clip_ids(prev, cfg.n_cap),
+                  torch.tensor(INVALID, dtype=torch.int32, device=dev),
+                  prev >= 0)
+    _drop_scatter(state.ext2slot, sext, ins_slots, ok_ins)
+    _drop_scatter(state.slot2ext, clip_ids(ins_slots, cfg.n_cap),
+                  batch.ext_id, ok_ins)
+
+    # ---- delete phase (policy-owned strategy) ------------------------------
+    del_slots = torch.where(is_del, state.ext2slot[sext],
+                            torch.full_like(ins_slots, INVALID))
+    if split is None:
+        graph, del_stats = pol.delete_many(graph, cfg, del_slots,
+                                           sequential=sequential)
+        del_ok_lane = del_stats.ok
+        del_comps_lane = del_stats.n_comps
+    else:
+        graph, del_stats = pol.delete_many(graph, cfg, del_slots[split:],
+                                           sequential=sequential)
+        del_ok_lane = torch.cat([
+            torch.zeros((split,), dtype=torch.bool, device=dev),
+            del_stats.ok])
+        del_comps_lane = torch.cat([
+            torch.zeros((split,), dtype=torch.int32, device=dev),
+            del_stats.n_comps.to(torch.int32)])
+    ok_del = is_del & del_ok_lane
+    inv = torch.tensor(INVALID, dtype=torch.int32, device=dev)
+    _drop_scatter(state.ext2slot, sext, inv, ok_del)
+    _drop_scatter(state.slot2ext, clip_ids(del_slots, cfg.n_cap), inv,
+                  ok_del)
+
+    # ---- counters + per-lane result ---------------------------------------
+    zero = torch.zeros_like(ins_comps_lane)
+    ins_comps = torch.where(is_ins, ins_comps_lane.to(torch.int32), zero)
+    del_comps = torch.where(is_del, del_comps_lane.to(torch.int32), zero)
+    state.n_inserts.add_(ok_ins.sum().to(torch.int32))
+    state.n_deletes.add_(ok_del.sum().to(torch.int32))
+    state.insert_comps.add_(ins_comps.sum().to(torch.int32))
+    state.delete_comps.add_(del_comps.sum().to(torch.int32))
+    result = ApplyResult(
+        slot=torch.where(ok_ins, ins_slots,
+                         torch.where(is_del, del_slots,
+                                     torch.full_like(ins_slots, INVALID))),
+        ok=ok_ins | ok_del,
+        n_comps=ins_comps + del_comps,
+    )
+    return state._replace(graph=graph), result
+
+
+def apply(state: IndexState, cfg: ANNConfig, batch: UpdateBatch, *,
+          policy: str = "ip", sequential: bool = False,
+          split: Optional[int] = None):
+    """Apply one mixed insert+delete ``UpdateBatch``; returns
+    ``(IndexState, ApplyResult)``.
+
+    Lanes whose ``valid`` is False, whose external id is out of range, or
+    (for deletes) unmapped, are no-ops with ``ok=False``.  ``split`` is the
+    kind-major layout hint of ``mixed_update_batch``: insert lanes in
+    ``[0, split)``, delete lanes in ``[split, B)``.
+
+    The handle's tensors are MUTATED in place (the reference donates them):
+    rebind the result, and ``clone_state`` first to keep the old state.
+    """
+    return _apply_impl(state, cfg, batch, get_policy(policy), sequential,
+                       split)
+
+
+# ---------------------------------------------------------------------------
+# Consolidation trigger
+# ---------------------------------------------------------------------------
+
+
+def device_sweep(graph: GraphState, cfg: ANNConfig, pol: UpdatePolicy,
+                 trig: torch.Tensor) -> GraphState:
+    """Run ``pol``'s consolidation pass when ``trig`` is set (one host read
+    of the trigger: the reference's ``lax.cond``)."""
+    if bool(trig):
+        graph = pol.consolidate(graph, cfg)
+    return graph
+
+
+def consolidate_if_needed(state: IndexState, cfg: ANNConfig, *,
+                          policy: str = "ip", force: bool = False):
+    """Evaluate the policy's trigger over the state's counters and sweep if
+    it fires.  Returns ``(IndexState, did: bool tensor)``."""
+    pol = get_policy(policy)
+    if force:
+        trig = state.graph.n_pending > 0
+    else:
+        trig = pol.should_consolidate_device(cfg, state.graph)
+    return state._replace(
+        graph=device_sweep(state.graph, cfg, pol, trig)), trig
+
+
+def maybe_consolidate(state: IndexState, cfg: ANNConfig, *,
+                      policy: str = "ip", force: bool = False):
+    """Run the policy's consolidation pass if its trigger fires (or, with
+    ``force``, whenever slots are pending); returns ``(IndexState, did:
+    bool)``."""
+    state, did = consolidate_if_needed(state, cfg, policy=policy,
+                                       force=force)
+    return state, bool(did)
+
+
+# ---------------------------------------------------------------------------
+# The query front door
+# ---------------------------------------------------------------------------
+
+
+def search(state: IndexState, cfg: ANNConfig, queries: torch.Tensor, *,
+           k: int = 10, l: Optional[int] = None):
+    """Query the handle; returns ``(ext_ids, dists, SearchResult)`` with
+    slot ids mapped to external ids."""
+    queries = torch.as_tensor(queries, dtype=torch.float32,
+                              device=state.ext2slot.device)
+    res = search_batch(state.graph, cfg, queries, k=k, l=l or cfg.l_search)
+    sids = res.topk_ids
+    ext = torch.where(sids >= 0, state.slot2ext[clip_ids(sids, cfg.n_cap)],
+                      torch.full_like(sids, INVALID))
+    return ext, res.topk_dists, res
+
+
+__all__ = [
+    "IPDiskANNPolicy", "UpdatePolicy", "apply", "available_policies",
+    "clone_state", "consolidate_if_needed", "delete_batch", "device_sweep",
+    "get_policy", "insert_batch", "make_update_batch", "maybe_consolidate",
+    "mixed_update_batch", "pad_update_batch", "register_policy", "search",
+]

@@ -1,0 +1,259 @@
+"""The distance-backend layer (``repro/core/backend.py``).
+
+Every hot path (Alg 1 search, Alg 2 insert, Alg 5 delete, Alg 3 prune, the
+recall oracle) bottoms out in "distances from a query to a gathered set of
+slots", and goes through a ``DistanceBackend``.  Three engines:
+
+  * ``torch`` — plain PyTorch math (``core/distance.py``), the counterpart
+                of the reference's ``jnp`` engine;
+  * ``ref``   — the plain kernel oracles (``kernels/ref.py``);
+  * ``cuda``  — the hand-written Hopper kernels: ``gather_distance`` for the
+                beam loop, ``beam_hop_fused`` for the fused super-step,
+                ``topk_score`` for the exact scan.  It raises on tensors that
+                are not on a CUDA device.
+
+``ANNConfig.backend = "auto"`` resolves by the device of the state's
+tensors: ``cuda`` for CUDA tensors, ``torch`` for CPU tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import distance as _math
+from .types import ANNConfig, GraphState, clip_ids
+
+BIG = _math.BIG
+
+
+def _big_like(t):
+    return torch.full_like(t, BIG)
+
+
+class DistanceBackend:
+    """Pluggable kernel engine for all distance math ("smaller = closer")."""
+
+    name = "abstract"
+
+    def query_norm(self, cfg: ANNConfig, q):
+        """||q||^2 along the last axis for l2, 0 for ip."""
+        if cfg.metric == "l2":
+            return (q * q).sum(-1) if q.dim() > 1 else torch.dot(q, q)
+        return torch.zeros(q.shape[:-1], dtype=torch.float32,
+                           device=q.device)
+
+    def dists_to_ids(self, state: GraphState, cfg: ANNConfig, q, ids):
+        """f32[M] distances from ``q`` to slots ``ids``; inf where
+        INVALID."""
+        raise NotImplementedError
+
+    def dists_to_ids_batched(self, state: GraphState, cfg: ANNConfig,
+                             queries, ids):
+        """f32[B, M] distances from ``queries[b]`` to slots ``ids[b]``;
+        inf where INVALID (the per-hop tile of the batched engine)."""
+        raise NotImplementedError
+
+    def beam_superstep(self, state: GraphState, cfg: ANNConfig, queries,
+                       carry, *, h: int, l: int, max_visits: int,
+                       masks=None):
+        """Advance the batched beam engine's carry by ``h`` hops.  ``masks``
+        optionally carries the packed (navigable, returnable) words, which
+        are loop-invariant within one search.  Default: ``h`` compositions
+        of the shared hop body over ``dists_to_ids_batched``."""
+        from .search_batched import superstep_reference
+
+        return superstep_reference(
+            self.dists_to_ids_batched, state, cfg, queries, carry,
+            h=h, l=l, max_visits=max_visits,
+        )
+
+    def dists_from_rows(self, cfg: ANNConfig, q, q_norm, rows, row_norms):
+        raise NotImplementedError
+
+    def pair_dists(self, cfg: ANNConfig, a_vecs, a_norms, b_vecs, b_norms):
+        raise NotImplementedError
+
+    def pair_dists_ids(self, state: GraphState, cfg: ANNConfig, a_ids,
+                       b_ids):
+        """(A, B) distances between two id sets; inf where either INVALID."""
+        sa = clip_ids(a_ids, cfg.n_cap)
+        sb = clip_ids(b_ids, cfg.n_cap)
+        d = self.pair_dists(cfg, state.vectors[sa], state.norms[sa],
+                            state.vectors[sb], state.norms[sb])
+        invalid = (a_ids[:, None] < 0) | (b_ids[None, :] < 0)
+        return torch.where(invalid, _big_like(d), d)
+
+    def brute_force_topk(self, state: GraphState, cfg: ANNConfig, queries,
+                         *, k: int):
+        """Exact top-k over live slots: (ids i32[Q, k], dists f32[Q, k]),
+        ascending, ids == -1 past the live count."""
+        raise NotImplementedError
+
+    def _biased_topk(self, state: GraphState, score_fn):
+        """+inf bias excludes non-live slots; non-finite results map to
+        id -1.  ``score_fn(bias) -> (dists, ids)``."""
+        bias = torch.where(state.active, 0.0, BIG).to(torch.float32)
+        d, ids = score_fn(bias)
+        return torch.where(torch.isfinite(d), ids,
+                           torch.full_like(ids, -1)), d
+
+
+_REGISTRY: dict = {}
+
+
+def register_backend(name: str):
+    """Class decorator: instantiate and register a backend under ``name``."""
+
+    def deco(cls):
+        cls.name = name
+        _REGISTRY[name] = cls()
+        return cls
+
+    return deco
+
+
+def available_backends() -> tuple:
+    return tuple(sorted(_REGISTRY))
+
+
+def get_backend(name: str, device=None) -> DistanceBackend:
+    """Resolve a backend by name.  ``"auto"`` picks ``cuda`` when the
+    state's ``device`` is a CUDA device, else ``torch``."""
+    if name == "auto":
+        if device is None:
+            raise ValueError("backend 'auto' needs the state's device")
+        name = "cuda" if torch.device(device).type == "cuda" else "torch"
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown distance backend {name!r}; "
+            f"available: {available_backends()}"
+        ) from None
+
+
+def resolve_backend(cfg: ANNConfig, device) -> DistanceBackend:
+    """The backend selected by ``cfg.backend`` for a state on ``device``."""
+    return get_backend(cfg.backend, device)
+
+
+@register_backend("torch")
+class TorchBackend(DistanceBackend):
+    """The matmul + broadcast-add formulation of ``core/distance.py``."""
+
+    def dists_to_ids(self, state, cfg, q, ids):
+        return _math.dists_to_ids(state, cfg, q, ids)
+
+    def dists_to_ids_batched(self, state, cfg, queries, ids):
+        safe = clip_ids(ids, cfg.n_cap)
+        rows = state.vectors[safe]                             # (B, M, D)
+        prod = torch.bmm(rows, queries.unsqueeze(-1)).squeeze(-1)
+        if cfg.metric == "l2":
+            d = (queries * queries).sum(1, keepdim=True) + \
+                state.norms[safe] - 2.0 * prod
+        else:
+            d = -prod
+        return torch.where(ids >= 0, d, _big_like(d))
+
+    def dists_from_rows(self, cfg, q, q_norm, rows, row_norms):
+        return _math.dists_from_rows(cfg.metric, q, q_norm, rows, row_norms)
+
+    def pair_dists(self, cfg, a_vecs, a_norms, b_vecs, b_norms):
+        return _math.pair_dists(cfg.metric, a_vecs, a_norms, b_vecs, b_norms)
+
+    def brute_force_topk(self, state, cfg, queries, *, k):
+        from ..kernels.ref import stable_topk_smallest
+
+        q_norms = self.query_norm(cfg, queries)
+        d = self.pair_dists(cfg, queries, q_norms, state.vectors,
+                            state.norms)
+        d = torch.where(state.active[None, :], d, _big_like(d))
+        vals, idx = stable_topk_smallest(d, k)
+        idx = idx.to(torch.int32)
+        return torch.where(torch.isfinite(vals), idx,
+                           torch.full_like(idx, -1)), vals
+
+
+@register_backend("ref")
+class RefBackend(TorchBackend):
+    """The kernel oracles of ``kernels/ref.py``."""
+
+    def dists_to_ids(self, state, cfg, q, ids):
+        from ..kernels import ref
+
+        return ref.gather_distance_ref(ids, q, state.vectors,
+                                       metric=cfg.metric)
+
+    def dists_to_ids_batched(self, state, cfg, queries, ids):
+        from ..kernels import ref
+
+        return ref.gather_distance_batched_ref(ids, queries, state.vectors,
+                                               metric=cfg.metric)
+
+    def brute_force_topk(self, state, cfg, queries, *, k):
+        from ..kernels import ref
+
+        return self._biased_topk(state, lambda bias: ref.topk_score_ref(
+            queries, state.vectors, state.norms, bias, k=k,
+            metric=cfg.metric,
+        ))
+
+
+@register_backend("cuda")
+class CudaBackend(TorchBackend):
+    """Routes the memory-bound primitives through the hand-written kernels.
+    Tile-local helpers (``dists_from_rows`` / ``pair_dists``) work on rows
+    the caller already gathered and keep the plain math."""
+
+    def dists_to_ids(self, state, cfg, q, ids):
+        from ..kernels.gather_distance import gather_distance_cuda
+
+        return gather_distance_cuda(ids.to(torch.int32), q, state.vectors,
+                                    state.norms, metric=cfg.metric)
+
+    def dists_to_ids_batched(self, state, cfg, queries, ids):
+        from ..kernels.gather_distance import gather_distance_batched_cuda
+
+        return gather_distance_batched_cuda(
+            ids.to(torch.int32), queries, state.vectors, state.norms,
+            metric=cfg.metric,
+        )
+
+    def beam_superstep(self, state, cfg, queries, carry, *, h, l,
+                       max_visits, masks=None):
+        from ..kernels.beam_hop import beam_hop_fused_cuda
+
+        if masks is None:
+            masks = pack_masks(state)
+        nav_words, ret_words = masks
+        exp = carry.beam_exp.to(torch.int32)
+        out = beam_hop_fused_cuda(
+            queries, carry.beam_ids, carry.beam_dists, exp, carry.seen,
+            carry.vis_ids, carry.vis_dists, carry.n_vis, carry.n_comps,
+            carry.n_hops, state.adj, state.vectors, state.norms, nav_words,
+            ret_words, metric=cfg.metric, h=h,
+        )
+        bi, bd, be, seen, vi, vd, n_vis, n_comps, n_hops = out
+        return type(carry)(bi, bd, be != 0, seen, vi, vd, n_vis, n_comps,
+                           n_hops)
+
+    def brute_force_topk(self, state, cfg, queries, *, k):
+        from ..kernels.topk_score import topk_score_cuda
+
+        return self._biased_topk(state, lambda bias: topk_score_cuda(
+            queries, state.vectors, state.norms, bias, k=k,
+            metric=cfg.metric,
+        ))
+
+
+def pack_masks(state: GraphState):
+    """The packed (navigable, returnable) words the fused hop reads."""
+    from . import bitset
+    from .types import navigable
+
+    return bitset.pack_bits(navigable(state)), bitset.pack_bits(state.active)
+
+
+__all__ = [
+    "BIG", "DistanceBackend", "available_backends", "get_backend",
+    "pack_masks", "register_backend", "resolve_backend",
+]

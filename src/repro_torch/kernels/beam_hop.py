@@ -1,0 +1,159 @@
+"""Fused multi-hop beam super-step: ``csrc/beam_hop.cu``.
+
+Replaces the TPU kernel ``repro/kernels/beam_hop.py::beam_hop_fused`` (body
+``_kernel``, per-lane step ``_lane_hop``): H masked hops per lane in one
+launch.  Each hop pops the closest unexpanded beam entry (first minimum),
+records it in the visited list if returnable, reads its adjacency row,
+keeps the navigable not-yet-seen neighbours, scores them, sets their seen
+bits and stable-merges them into the beam, keeping the best l.  Inactive
+lanes are exact no-ops.
+
+Bound on the H100: bytes, in the random gathers (per hop and lane one
+adjacency row and up to R rows of 4D bytes).  One block per lane keeps the
+beam, the adjacency row and the new distances in shared memory across all H
+hops; the seen row (125 KB per lane at n_cap = 10^6) stays in global memory
+and only the words a hop touches are tested and set in place.  The merge
+ranks the (l + R) entries directly, which equals the reference's stable
+``lax.sort`` of the concatenation.
+
+The carry is the reference's: ``(beam_ids i32[B,l], beam_dists f32[B,l],
+beam_exp i32[B,l], seen i32[B,W], vis_ids i32[B,mv], vis_dists f32[B,mv],
+n_vis, n_comps, n_hops i32[B])``; ``seen``, ``nav_words`` and ``ret_words``
+are the int32 bit patterns of ``core/bitset.py``.  The CUDA launcher
+updates the carry tensors IN PLACE and returns them; the plain version
+returns new tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import build
+
+LAUNCHES = {"beam_hop_fused": 0}
+INF = float("inf")
+
+
+def _getbit(words, ids):
+    w = words[ids >> 5]
+    return ((w >> (ids & 31).to(torch.int32)) & 1) != 0
+
+
+def _lane_hop(metric, l, mv, n_cap, adj, vectors, norms, nav_words,
+              ret_words, queries, c):
+    """ONE masked hop of every lane: ``_lane_hop`` with a batch axis."""
+    from ..core.bitset import getbit_rows, setbits_rows
+
+    bi, bd, be, seen, vi, vd, n_vis, n_comps, n_hops = c
+    b = bi.shape[0]
+    bidx = torch.arange(b, device=bi.device)
+    active = ((bi >= 0) & (be == 0) & torch.isfinite(bd)).any(1) & \
+        (n_hops < mv)
+
+    frontier_d = torch.where((bi >= 0) & (be == 0), bd,
+                             torch.full_like(bd, INF))
+    i = torch.argmin(frontier_d, dim=1)
+    v = bi[bidx, i]
+    dv = bd[bidx, i]
+    be = be.clone()
+    be[bidx, i] = be[bidx, i] | active.to(be.dtype)
+    sv = v.clamp(0, n_cap - 1).long()
+
+    write = active & _getbit(ret_words, sv)
+    vi, vd = vi.clone(), vd.clone()
+    rows = bidx[write]
+    cols = n_vis[write].long()
+    vi[rows, cols] = v[write]
+    vd[rows, cols] = dv[write]
+    n_vis = n_vis + write.to(torch.int32)
+
+    nbrs = adj[sv]                                          # (B, r)
+    safe = nbrs.clamp(0, n_cap - 1).long()
+    fresh = (nbrs >= 0) & _getbit(nav_words, safe) & \
+        ~getbit_rows(seen, safe) & active[:, None]
+    masked = torch.where(fresh, nbrs, torch.full_like(nbrs, -1))
+    rows_x = vectors[masked.clamp(min=0).long()]            # (B, r, D)
+    prod = torch.bmm(rows_x, queries.unsqueeze(-1)).squeeze(-1)
+    if metric == "l2":
+        q2 = (queries * queries).sum(1, keepdim=True)
+        x2 = torch.where(masked >= 0, norms[masked.clamp(0, n_cap - 1).long()],
+                         torch.zeros_like(prod))
+        nd = q2 + x2 - 2.0 * prod
+    else:
+        nd = -prod
+    nd = torch.where(masked >= 0, nd, torch.full_like(nd, INF))
+    n_comps = n_comps + fresh.sum(1).to(torch.int32)
+    seen = setbits_rows(seen, safe, fresh)
+
+    all_d = torch.cat([bd, nd], dim=1)
+    all_p = torch.cat([(bi << 1) | be, masked << 1], dim=1)
+    sd, order = torch.sort(all_d, dim=1, stable=True)
+    sp = torch.gather(all_p, 1, order)
+    sp = sp[:, :l].contiguous()
+    return (sp >> 1, sd[:, :l].contiguous(), sp & 1, seen, vi, vd, n_vis,
+            n_comps, n_hops + active.to(torch.int32))
+
+
+def beam_hop_fused_plain(queries, beam_ids, beam_dists, beam_exp, seen,
+                         vis_ids, vis_dists, n_vis, n_comps, n_hops, adj,
+                         vectors, norms, nav_words, ret_words, *,
+                         metric: str = "l2", h: int = 4):
+    """The kernel's semantics in plain PyTorch; returns a new carry."""
+    n_cap = adj.shape[0]
+    l = beam_ids.shape[1]
+    mv = vis_ids.shape[1]
+    c = (beam_ids, beam_dists, beam_exp.to(torch.int32), seen, vis_ids,
+         vis_dists, n_vis.to(torch.int32), n_comps.to(torch.int32),
+         n_hops.to(torch.int32))
+    for _ in range(h):
+        c = _lane_hop(metric, l, mv, n_cap, adj, vectors, norms, nav_words,
+                      ret_words, queries, c)
+    return c
+
+
+def beam_hop_fused_cuda(queries, beam_ids, beam_dists, beam_exp, seen,
+                        vis_ids, vis_dists, n_vis, n_comps, n_hops, adj,
+                        vectors, norms, nav_words, ret_words, *,
+                        metric: str = "l2", h: int = 4):
+    """Launch the kernel: updates the carry in place and returns it."""
+    queries = queries.contiguous()
+    carry = (beam_ids, beam_dists, beam_exp, seen, vis_ids, vis_dists,
+             n_vis, n_comps, n_hops)
+    build.require_cuda(queries, *carry, adj, vectors, norms, nav_words,
+                       ret_words)
+    for t, what in ((beam_ids, "beam_ids"), (beam_exp, "beam_exp"),
+                    (seen, "seen"), (vis_ids, "vis_ids"), (n_vis, "n_vis"),
+                    (n_comps, "n_comps"), (n_hops, "n_hops"), (adj, "adj"),
+                    (nav_words, "nav_words"), (ret_words, "ret_words")):
+        build.require_dtype(t, torch.int32, what)
+    for t, what in ((queries, "queries"), (beam_dists, "beam_dists"),
+                    (vis_dists, "vis_dists"), (vectors, "vectors"),
+                    (norms, "norms")):
+        build.require_dtype(t, torch.float32, what)
+    b, l = beam_ids.shape
+    n_cap, r = adj.shape
+    d = vectors.shape[1]
+    w = seen.shape[1]
+    mv = vis_ids.shape[1]
+    if l > 256 or r > 128 or d > 8192:
+        raise ValueError(f"beam_hop kernel takes l <= 256, r <= 128, "
+                         f"dim <= 8192; got l={l} r={r} dim={d}")
+    if (seen.shape != (b, w) or nav_words.shape != (w,)
+            or ret_words.shape != (w,) or w * 32 < n_cap
+            or queries.shape != (b, d)):
+        raise ValueError("beam_hop: inconsistent carry shapes")
+    err = build.lib("beam_hop").beam_hop_launch(
+        *(build.ptr(t) for t in (queries, *carry, adj, vectors, norms,
+                                 nav_words, ret_words)),
+        b, l, r, mv, n_cap, w, d, h, int(metric == "l2"),
+        build.stream(queries),
+    )
+    build.check(err, "beam_hop_fused")
+    LAUNCHES["beam_hop_fused"] += 1
+    return carry
+
+
+def beam_hop_fused(*args, metric: str = "l2", h: int = 4):
+    """Plain version for CPU tensors, the kernel for CUDA tensors."""
+    if build.on_cpu(*args):
+        return beam_hop_fused_plain(*args, metric=metric, h=h)
+    return beam_hop_fused_cuda(*args, metric=metric, h=h)

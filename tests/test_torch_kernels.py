@@ -1,0 +1,313 @@
+"""The port's kernels: plain versions against the JAX kernels, and (on a
+card) the CUDA kernels against their plain versions.
+
+On the CPU every plain version (``repro_torch/kernels/*``) is held against
+the reference's Pallas kernel in interpret mode and against
+``repro/kernels/ref.py``, on grid-valued data bitwise and on Gaussian data
+to the reference's bar.  The matrix covers both metrics, INVALID ids, D not
+a multiple of 128, duplicate neighbour ids, a tombstoned entry point,
+masked lanes, H not dividing the hop count and n_cap not a multiple of 32.
+
+The ``requires_cuda`` tests run the CUDA kernels against their plain
+versions on the card (``python -m pytest --noconftest -m requires_cuda
+tests/test_torch_kernels.py``: the card's machine has no JAX, which
+``tests/conftest.py`` imports); elsewhere they skip.  JAX is imported inside
+the CPU tests only, so the card-only tests collect without it.
+"""
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import (assert_field, cuda_device,  # noqa: F401
+                          grid_data, n, t)
+
+from repro_torch.core import bitset as tbitset
+from repro_torch.kernels import beam_hop as tbh
+from repro_torch.kernels import gather_distance as tgd
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import topk_score as ttk
+
+N_CAP = 250  # not a multiple of 32
+
+
+def _data(kind, nrow, dim, seed, metric="l2"):
+    if kind == "grid":
+        return grid_data(nrow, dim, seed)
+    from repro_torch.core.runbook import make_dataset
+
+    return make_dataset(nrow, dim, metric, n_queries=1, seed=seed)[0]
+
+
+def _close(a, b, exact, msg):
+    assert_field(a, b, msg, exact)
+
+
+def _ids(rng, b, k, n_cap):
+    ids = rng.integers(0, n_cap, size=(b, k)).astype(np.int32)
+    ids[rng.random((b, k)) < 0.2] = -1
+    return ids
+
+
+@pytest.mark.parametrize("kind", ["grid", "gauss"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("dim", [24, 130])
+def test_gather_distance_batched_plain(kind, metric, dim):
+    import jax.numpy as jnp
+
+    from repro.kernels import ref as jref
+    from repro.kernels.gather_distance import gather_distance_batched
+
+    rng = np.random.default_rng(dim)
+    vec = _data(kind, N_CAP, dim, 1, metric)
+    q = _data(kind, 6, dim, 2, metric)
+    ids = _ids(rng, 6, 20, N_CAP)
+    norms = (vec * vec).sum(1).astype(np.float32)
+    out = tgd.gather_distance_batched(t(ids), t(q), t(vec), t(norms),
+                                      metric=metric)
+    pal = gather_distance_batched(jnp.asarray(ids), jnp.asarray(q),
+                                  jnp.asarray(vec), jnp.asarray(norms),
+                                  metric=metric, interpret=True)
+    jr = jref.gather_distance_batched_ref(jnp.asarray(ids), jnp.asarray(q),
+                                          jnp.asarray(vec), metric=metric)
+    tr = tref.gather_distance_batched_ref(t(ids), t(q), t(vec),
+                                          metric=metric)
+    exact = kind == "grid"
+    _close(pal, out, exact, "plain vs pallas")
+    _close(jr, tr, exact, "ref vs ref")
+    _close(tr, out, exact, "plain vs ref")
+    assert np.isinf(n(out)[ids < 0]).all()
+
+
+@pytest.mark.parametrize("kind", ["grid", "gauss"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("with_norms", [True, False])
+def test_gather_distance_plain(kind, metric, with_norms):
+    import jax.numpy as jnp
+
+    from repro.kernels import ref as jref
+    from repro.kernels.gather_distance import gather_distance
+
+    rng = np.random.default_rng(3)
+    vec = _data(kind, N_CAP, 20, 4, metric)
+    q = _data(kind, 1, 20, 5, metric)[0]
+    ids = _ids(rng, 1, 17, N_CAP)[0]
+    norms = (vec * vec).sum(1).astype(np.float32) if with_norms else None
+    out = tgd.gather_distance(t(ids), t(q), t(vec),
+                              None if norms is None else t(norms),
+                              metric=metric)
+    pal = gather_distance(jnp.asarray(ids), jnp.asarray(q), jnp.asarray(vec),
+                          None if norms is None else jnp.asarray(norms),
+                          metric=metric, interpret=True)
+    jr = jref.gather_distance_ref(jnp.asarray(ids), jnp.asarray(q),
+                                  jnp.asarray(vec), metric=metric)
+    exact = kind == "grid"
+    _close(pal, out, exact, "plain vs pallas")
+    _close(jr, tref.gather_distance_ref(t(ids), t(q), t(vec), metric=metric),
+           exact, "ref vs ref")
+
+
+def _beam_inputs(kind, metric, b=6, l=16, r=8, dim=20, seed=0,
+                 tombstoned_start=True):
+    """A random graph with duplicate neighbour ids, a tombstoned (navigable,
+    not returnable) entry point and masked lanes, plus an initial carry."""
+    rng = np.random.default_rng(seed)
+    vec = _data(kind, N_CAP, dim, seed + 1, metric)
+    norms = (vec * vec).sum(1).astype(np.float32)
+    adj = rng.integers(0, N_CAP, size=(N_CAP, r)).astype(np.int32)
+    adj[rng.random((N_CAP, r)) < 0.2] = -1
+    adj[:, 1] = adj[:, 0]                      # duplicate neighbours
+    nav = rng.random(N_CAP) < 0.95
+    ret = nav & (rng.random(N_CAP) < 0.9)
+    start = int(np.nonzero(nav & ~ret)[0][0]) if tombstoned_start \
+        else int(np.nonzero(ret)[0][0])
+    q = _data(kind, b, dim, seed + 2, metric)
+    mv = l + 8
+    starts = np.full((b,), start, np.int32)
+    starts[b // 2] = -1                        # a masked lane
+    bi = np.full((b, l), -1, np.int32)
+    bi[:, 0] = starts
+    d0 = n(tgd.gather_distance_batched(t(starts[:, None]), t(q), t(vec),
+                                       t(norms), metric=metric))[:, 0]
+    bd = np.full((b, l), np.inf, np.float32)
+    bd[:, 0] = d0
+    seen = np.zeros((b, (N_CAP + 31) // 32), np.uint32)
+    for i, s in enumerate(starts):
+        if s >= 0:
+            seen[i, s >> 5] |= np.uint32(1 << (s & 31))
+    carry = (bi, bd, np.zeros((b, l), np.int32), seen,
+             np.full((b, mv), -1, np.int32), np.full((b, mv), np.inf,
+                                                     np.float32),
+             np.zeros((b,), np.int32), (starts >= 0).astype(np.int32),
+             np.zeros((b,), np.int32))
+    pack = lambda m: np.asarray(  # noqa: E731
+        [int(sum(int(x) << i for i, x in enumerate(m[w * 32:w * 32 + 32])))
+         for w in range((N_CAP + 31) // 32)], np.uint32)
+    static = (adj, vec, norms, pack(nav), pack(ret))
+    return q, carry, static
+
+
+@pytest.mark.parametrize("kind", ["grid", "gauss"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("h", [3, 4])
+def test_beam_hop_plain_vs_ref(kind, metric, h):
+    """Super-steps of the plain fused hop against ``beam_hop_ref``, fed
+    their own outputs until every lane converges."""
+    import jax.numpy as jnp
+
+    from repro.kernels.beam_hop import beam_hop_ref
+
+    q, carry, static = _beam_inputs(kind, metric)
+    jc = tuple(jnp.asarray(x) for x in carry)
+    tc = tuple(t(x) for x in carry)
+    js = tuple(jnp.asarray(x) for x in static)
+    ts = tuple(t(x) for x in static)
+    exact = kind == "grid"
+    for step in range(12):
+        jc = beam_hop_ref(jnp.asarray(q), *jc, *js, metric=metric, h=h)
+        tc = tbh.beam_hop_fused(t(q), *tc, *ts, metric=metric, h=h)
+        for i, (a, b) in enumerate(zip(jc, tc)):
+            _close(a, b, exact, f"step {step} carry field {i}")
+    assert n(tc[8]).sum() > 0  # the lanes did hop
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_beam_hop_plain_vs_pallas_interpret(metric):
+    """One tiny case against the Pallas kernel itself (interpret mode)."""
+    import jax.numpy as jnp
+
+    from repro.kernels import ops
+
+    q, carry, static = _beam_inputs("grid", metric, b=2, l=8, r=4, dim=8,
+                                    tombstoned_start=False)
+    jc = ops.beam_hop(jnp.asarray(q), *(jnp.asarray(x) for x in carry),
+                      *(jnp.asarray(x) for x in static), metric=metric, h=2,
+                      interpret=True)
+    tc = tbh.beam_hop_fused(t(q), *(t(x) for x in carry),
+                            *(t(x) for x in static), metric=metric, h=2)
+    for i, (a, b) in enumerate(zip(jc, tc)):
+        _close(a, b, True, f"carry field {i}")
+
+
+@pytest.mark.parametrize("kind", ["grid", "gauss"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("n_rows,live", [(1500, 0.7), (40, 0.15)])
+def test_topk_score_plain(kind, metric, n_rows, live):
+    """Against ``ops.topk_search`` (the padded Pallas scan, interpret mode)
+    and ``ref.topk_score_ref``, with dead rows biased out; the (40, 0.15)
+    case has fewer than k live rows."""
+    import jax.numpy as jnp
+
+    from repro.kernels import ops
+    from repro.kernels import ref as jref
+
+    rng = np.random.default_rng(n_rows)
+    vec = _data(kind, n_rows, 24, 6, metric)
+    q = _data(kind, 5, 24, 7, metric)
+    norms = (vec * vec).sum(1).astype(np.float32)
+    bias = np.where(rng.random(n_rows) < live, 0.0, np.inf).astype(
+        np.float32)
+    k = 10
+    tv, ti = ttk.topk_score(t(q), t(vec), t(norms), t(bias), k=k,
+                            metric=metric)
+    jv, ji = ops.topk_search(jnp.asarray(q), jnp.asarray(vec),
+                             jnp.asarray(norms), k=k, metric=metric,
+                             bias=jnp.asarray(bias), interpret=True)
+    exact = kind == "grid"
+    _close(jv, tv, exact, "plain vs pallas dists")
+    _close(ji, ti, True, "plain vs pallas ids")
+    rv, ri = jref.topk_score_ref(jnp.asarray(q), jnp.asarray(vec),
+                                 jnp.asarray(norms), jnp.asarray(bias), k=k,
+                                 metric=metric)
+    fin = np.isfinite(np.asarray(rv))
+    np.testing.assert_array_equal(np.where(fin, np.asarray(ri), -1), n(ti))
+    tv2, ti2 = tref.topk_score_ref(t(q), t(vec), t(norms), t(bias), k=k,
+                                   metric=metric)
+    _close(rv, tv2, exact, "ref vs ref dists")
+    _close(ri, ti2, True, "ref vs ref ids")
+
+
+def test_stable_topk_breaks_ties_low():
+    d = torch.tensor([[3.0, 1.0, 1.0, 0.0, 1.0, float("inf")]])
+    vals, idx = tref.stable_topk_smallest(d, 4)
+    assert idx.tolist() == [[3, 1, 2, 4]]
+
+
+# ---------------------------------------------------------------------------
+# on the card: CUDA kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _to(dev, *xs):
+    return tuple(None if x is None else t(x).to(dev) for x in xs)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["grid", "gauss"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("with_norms", [True, False])
+def test_cuda_gather_distance(cuda_device, kind, metric, with_norms):
+    rng = np.random.default_rng(11)
+    vec = _data(kind, N_CAP, 130, 1, metric)
+    q = _data(kind, 7, 130, 2, metric)
+    ids = _ids(rng, 7, 64, N_CAP)
+    norms = (vec * vec).sum(1).astype(np.float32) if with_norms else None
+    ids_d, q_d, vec_d, norms_d = _to(cuda_device, ids, q, vec, norms)
+    a = tgd.gather_distance_batched_cuda(ids_d, q_d, vec_d, norms_d,
+                                         metric=metric)
+    p = tgd.gather_distance_batched_plain(ids_d, q_d, vec_d, norms_d,
+                                          metric=metric)
+    _close(p, a, kind == "grid", "batched kernel vs plain")
+    a1 = tgd.gather_distance_cuda(ids_d[0], q_d[0], vec_d, norms_d,
+                                  metric=metric)
+    p1 = tgd.gather_distance_plain(ids_d[0], q_d[0], vec_d, norms_d,
+                                   metric=metric)
+    _close(p1, a1, kind == "grid", "single kernel vs plain")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["grid", "gauss"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("h", [1, 3, 4])
+def test_cuda_beam_hop(cuda_device, kind, metric, h):
+    q, carry, static = _beam_inputs(kind, metric, b=9, l=32, r=16, dim=40)
+    qd = _to(cuda_device, q)[0]
+    sd = _to(cuda_device, *static)
+    c = _to(cuda_device, *carry)
+    for step in range(10):
+        p = tbh.beam_hop_fused_plain(qd, *c, *sd, metric=metric, h=h)
+        k = tbh.beam_hop_fused_cuda(qd, *(x.clone() for x in c), *sd,
+                                    metric=metric, h=h)
+        for i, (a, b) in enumerate(zip(p, k)):
+            _close(a, b, kind == "grid", f"step {step} field {i}")
+        c = p
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["grid", "gauss"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("n_rows,k", [(10_000, 10), (9_000, 64), (30, 10)])
+def test_cuda_topk_score(cuda_device, kind, metric, n_rows, k):
+    rng = np.random.default_rng(n_rows)
+    vec = _data(kind, n_rows, 40, 6, metric)
+    q = _data(kind, 37, 40, 7, metric)
+    norms = (vec * vec).sum(1).astype(np.float32)
+    bias = np.where(rng.random(n_rows) < 0.8, 0.0, np.inf).astype(np.float32)
+    args = _to(cuda_device, q, vec, norms, bias)
+    kv, ki = ttk.topk_score_cuda(*args, k=k, metric=metric)
+    pv, pi = ttk.topk_score_plain(*args, k=k, metric=metric)
+    _close(pv, kv, kind == "grid", "dists")
+    _close(pi, ki, True, "ids")
+
+
+@pytest.mark.requires_cuda
+def test_cuda_topk_refuses_large_k(cuda_device):
+    x = torch.zeros((4, 8), device=cuda_device)
+    with pytest.raises(ValueError):
+        ttk.topk_score_cuda(x, x, x[:, 0], k=65)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_bitset_pack_matches_plain(cuda_device):
+    bits = torch.rand((3, 1000), device=cuda_device) < 0.5
+    np.testing.assert_array_equal(n(tbitset.pack_bits(bits)),
+                                  n(tbitset.pack_bits(bits.cpu())))

@@ -1,0 +1,118 @@
+"""Shared helpers of the ``tests/test_torch_*.py`` parity tests: the same
+numpy inputs go through the JAX reference (``repro``) and the PyTorch port
+(``repro_torch``), and the outputs are compared.
+
+Grid-valued data (entries k/16, |k| <= 64) makes every dot product, norm
+and ``q2 + x2 - 2*prod`` exact in float32 in any summation order, so the two
+packages must agree bitwise there while exact ties (every tie rule) are
+common.  Gaussian data (``make_dataset``) is compared with the reference's
+own kernel bar: ids and counters exactly, distances to rtol 2e-5, atol 1e-5.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+RTOL, ATOL = 2e-5, 1e-5
+INDEX_LEAVES = ("ext2slot", "slot2ext", "n_inserts", "n_deletes",
+                "insert_comps", "delete_comps")
+
+
+def grid_data(n: int, dim: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return (rng.integers(-64, 65, size=(n, dim)) / 16).astype(np.float32)
+
+
+def cfg_pair(**kw):
+    """The same ``ANNConfig`` in both packages: (jax_cfg, torch_cfg).
+    Backends are named per package (``jnp``/``torch`` by default)."""
+    from repro.core.types import ANNConfig as JCfg
+    from repro_torch.core.types import ANNConfig as TCfg
+
+    jb = kw.pop("jax_backend", "jnp")
+    tb = kw.pop("torch_backend", "torch")
+    return JCfg(backend=jb, **kw), TCfg(backend=tb, **kw)
+
+
+def small_kw(metric="l2", dim=24, n_cap=700):
+    """The ``tests/conftest.py`` small_cfg widths."""
+    return dict(dim=dim, n_cap=n_cap, r=12, l_build=32, l_search=32,
+                l_delete=32, k_delete=16, n_copies=3, alpha=1.2,
+                metric=metric)
+
+
+def t(x, dtype=None):
+    """numpy / jax array -> CPU torch tensor (uint32 keeps its bits as
+    int32)."""
+    a = np.asarray(x)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    out = torch.from_numpy(np.array(a, copy=True))
+    return out if dtype is None else out.to(dtype)
+
+
+def n(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def jax_index_numpy(state) -> dict:
+    """A reference ``IndexState`` in the ``repro_torch.convert`` layout."""
+    from repro.core.types import as_numpy_state
+
+    d = {"graph": as_numpy_state(state.graph)}
+    for f in INDEX_LEAVES:
+        d[f] = np.asarray(getattr(state, f))
+    return d
+
+
+def assert_field(a, b, name, exact=True):
+    a, b = n(a), n(b)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    if b.dtype == np.uint32:
+        b = b.view(np.int32)
+    if exact or not np.issubdtype(a.dtype, np.floating):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    else:
+        np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL, err_msg=name)
+
+
+def assert_index_equal(jstate, tstate, exact=True, where=""):
+    """Every leaf of the two ``IndexState``s equal (floats to tolerance when
+    ``exact`` is False)."""
+    from repro_torch import convert
+
+    a = jax_index_numpy(jstate)
+    b = convert.index_state_to_numpy(tstate)
+    for f, v in a["graph"].items():
+        if v is None:
+            assert b["graph"][f] is None
+            continue
+        assert_field(v, b["graph"][f], f"{where} graph.{f}", exact)
+    for f in INDEX_LEAVES:
+        assert_field(a[f], b[f], f"{where} {f}", exact)
+
+
+def assert_graph_equal(jgraph, tgraph, fields, exact=True, where=""):
+    for f in fields:
+        assert_field(getattr(jgraph, f), getattr(tgraph, f),
+                     f"{where} {f}", exact)
+
+
+def assert_search_equal(jres, tres, exact=True, where=""):
+    """Ids, visited ids and counters exactly; distances bitwise on grid data
+    or to tolerance."""
+    for f in ("topk_ids", "visited_ids", "n_visited", "n_comps", "n_hops"):
+        assert_field(getattr(jres, f), getattr(tres, f), f"{where} {f}")
+    for f in ("topk_dists", "visited_dists"):
+        assert_field(getattr(jres, f), getattr(tres, f), f"{where} {f}",
+                     exact)
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, or a skip: decided inside the fixture, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    return torch.device("cuda")
