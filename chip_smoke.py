@@ -6,26 +6,37 @@ Phases, any failure exits non-zero:
   1. device and build: the card's name, count and power limit; build the
      hand-written kernels (``src/repro_torch/csrc``) with nvcc;
   2. kernel parity at the main path's shapes (n_cap = 10^6, D = 128, R = 64,
-     l = 128, mv = 192, H = 4): every kernel against its plain PyTorch
-     version, bitwise on grid-valued data (entries k/16, where every sum is
-     exact in float32) and to rtol 1e-5 on Gaussian data; CUDA-event times
-     of the kernel, the plain version, a one-call PyTorch yardstick where
-     one exists, and the bound from the bytes / flops the inputs need;
-  3. the main path end to end: ``ANNConfig(dim=128, n_cap=1_000_000)`` on
-     the card, a serial bootstrap, batched insert windows, Recall@10, in-place
-     deletes with the Alg-6 sweep, reinserts, Recall@10 again, a timed
-     query-only phase — with every kernel's launches counted;
-  4. the same short grid-data stream at test size with backend "cuda" and
-     backend "torch", which must end in identical states and results.
+     l = 128, mv = 192, B = 512, H = 4): all six kernels (the f32 ones and
+     the int8 twins over ``quantize_rows`` of the same tables) against
+     their plain PyTorch versions, bitwise on grid-valued data (entries
+     k/16, where every sum is exact in float32) and to rtol 1e-5 on
+     Gaussian data; CUDA-event times of the kernel, the plain version, a
+     one-call PyTorch yardstick where one exists, and the bound from the
+     bytes / flops the inputs need;
+  3. the f32 main path end to end: ``ANNConfig(dim=128, n_cap=1_000_000)``
+     on the card, a serial bootstrap, batched insert windows, Recall@10,
+     in-place deletes with the Alg-6 sweep, reinserts, Recall@10 again, a
+     timed query-only phase — with every kernel's launches counted;
+ 3b. the quantized path at full width: ``StreamingIndex(ANNConfig(dim=128,
+     n_cap=1_000_000, quantized=True), batch_updates=True)`` replaying a
+     sliding-window runbook through ``run_runbook``; Recall@10 per eval, no
+     deleted id returned, the returned distances bitwise equal to the f32
+     rescore of the returned slots, both int8 kernels launched;
+  4. short grid-data streams at test size: the f32 ``apply`` stream with
+     backend "cuda" and "torch", and a quantized ``StreamingIndex`` stream
+     that grows through two capacity buckets with backend "cuda" (hop
+     fusion off, so the int8 gather carries every hop, and on) and
+     "torch"; each must end in identical states and results.
 
 Prints the kernels line, the card's name and power limit, and last the
 ``{"ok": true, "device": ...}`` line; the full record goes to
 ``chiprun_out/chip_smoke.json``.  Usage: ``python3 chip_smoke.py [--seed S]
-[--live N]``.
+[--live N] [--runbook-n N]``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -42,13 +53,22 @@ TPU_SITES = {
     "gather_distance": "src/repro/kernels/gather_distance.py:66",
     "beam_hop_fused": "src/repro/kernels/beam_hop.py:245",
     "topk_score": "src/repro/kernels/topk_score.py:86",
+    "gather_distance_batched_q": "src/repro/kernels/quant_gather.py:71",
+    "beam_hop_fused_q": "src/repro/kernels/beam_hop.py:406",
 }
 SOURCES = {
     "gather_distance_batched": "src/repro_torch/csrc/gather_distance.cu",
     "gather_distance": "src/repro_torch/csrc/gather_distance.cu",
     "beam_hop_fused": "src/repro_torch/csrc/beam_hop.cu",
     "topk_score": "src/repro_torch/csrc/topk_score.cu",
+    "gather_distance_batched_q": "src/repro_torch/csrc/quant_gather.cu",
+    "beam_hop_fused_q": "src/repro_torch/csrc/beam_hop.cu",
 }
+# the kernels each path must launch
+F32_PATH = ("gather_distance_batched", "gather_distance", "beam_hop_fused",
+            "topk_score")
+QUANT_PATH = ("gather_distance_batched_q", "beam_hop_fused_q",
+              "gather_distance_batched", "gather_distance", "topk_score")
 
 
 class PhaseError(RuntimeError):
@@ -104,13 +124,87 @@ def make_table(n, d, grid, gen):
     return torch.randn((n, d), generator=gen, device="cuda")
 
 
+def hop_parity(name, plain, kern, qb, static, starts, d0, grid, n_cap, l,
+               mv, h, row_bytes, steps=8):
+    """A fused hop kernel against its plain version over ``steps``
+    super-steps from a fresh search carry, each step fed the plain output:
+    bitwise on grid data, else distances to rtol 1e-5 with at most 1% of
+    lanes diverging; on Gaussian data also its times and bound."""
+    import torch
+
+    from repro_torch.core import bitset
+
+    b = qb.shape[0]
+    d = qb.shape[1]
+    r = static[0].shape[1]
+    bi = torch.full((b, l), -1, dtype=torch.int32, device="cuda")
+    bi[:, 0] = starts
+    bd = torch.full((b, l), float("inf"), device="cuda")
+    bd[:, 0] = d0
+    seen = bitset.setbits_rows(
+        bitset.empty_rows(b, n_cap, "cuda"),
+        starts.clamp(min=0).long()[:, None], (starts >= 0)[:, None])
+    carry = (bi, bd, torch.zeros_like(bi), seen,
+             torch.full((b, mv), -1, dtype=torch.int32, device="cuda"),
+             torch.full((b, mv), float("inf"), device="cuda"),
+             torch.zeros((b,), dtype=torch.int32, device="cuda"),
+             (starts >= 0).to(torch.int32),
+             torch.zeros((b,), dtype=torch.int32, device="cuda"))
+    diverged = 0
+    max_err = 0.0
+    for step in range(steps):
+        p = plain(qb, *carry, *static, h=h)
+        kc = tuple(t.clone() for t in carry)
+        k_out = kern(qb, *kc, *static, h=h)
+        torch.cuda.synchronize()
+        same_lane = torch.ones((b,), dtype=torch.bool, device="cuda")
+        for x, y in zip(k_out, p):
+            if x.dtype == torch.float32:
+                fin = torch.isfinite(y)
+                same_lane &= (torch.isfinite(x) == fin).reshape(b, -1).all(1)
+                if fin.any():
+                    max_err = max(max_err, float((x[fin] - y[fin]).abs()
+                                                 .max()))
+                ok = torch.isclose(x, y, rtol=1e-5, atol=1e-4) | ~fin
+            else:
+                ok = x == y
+            same_lane &= ok.reshape(b, -1).all(1)
+        bad = int((~same_lane).sum())
+        if grid:
+            check(bad == 0 and all(torch.equal(x, y)
+                                   for x, y in zip(k_out, p)),
+                  f"{name}: grid data not bitwise at step {step}")
+        diverged = max(diverged, bad)
+        carry = p
+    check(diverged <= b // 100, f"{name}: {diverged} of {b} lanes diverge")
+    out = {"max_abs_err": max_err, "diverged_lanes": diverged}
+    if not grid:
+        # time one super-step from the mid-search carry of the last step
+        c0 = tuple(t.clone() for t in carry)
+        pc = plain(qb, *c0, *static, h=h)
+        dcomp = int((pc[7] - c0[7]).sum())
+        dhop = int((pc[8] - c0[8]).sum())
+        ms = cuda_ms(lambda c: kern(qb, *c, *static, h=h), 10,
+                     setup=lambda: tuple(t.clone() for t in c0))
+        pms = cuda_ms(lambda c: plain(qb, *c, *static, h=h), 3,
+                      setup=lambda: c0)
+        carry_bytes = b * (l * 12 * 2 + mv * 8 + 24 + d * 4)
+        by = dcomp * row_bytes + dhop * (4 * r + 8 * r + 8) + carry_bytes
+        bms, bby = bound(by, dcomp * 2 * d)
+        out.update(ms=ms, plain_ms=pms, library_ms=None, bound_ms=bms,
+                   bound_by=bby, rows_gathered=dcomp, hops=dhop)
+    return out
+
+
 def kernel_phase(seed, n_cap=1_000_000, d=128, r=64, l=128, b=512, h=4,
                  q_topk=1024, k=10):
     import torch
 
     from repro_torch.core import bitset
+    from repro_torch.core.quant import init_quant_store, quant_write_rows
     from repro_torch.kernels import beam_hop as bh
     from repro_torch.kernels import gather_distance as gd
+    from repro_torch.kernels import quant_gather as qg
     from repro_torch.kernels import topk_score as tk
 
     mv = l + 64
@@ -134,15 +228,34 @@ def kernel_phase(seed, n_cap=1_000_000, d=128, r=64, l=128, b=512, h=4,
         qb = queries[:b].contiguous()
         res = {}
 
-        # ---- kernels 1 and 2: gather + distance ---------------------------
-        for name, args, plain, kern in (
+        # ---- kernels 1, 2 and 5: gather + distance, f32 and int8 ----------
+        store = quant_write_rows(init_quant_store(n_cap, d, "cuda"),
+                                 torch.arange(n_cap, device="cuda"), vec)
+        qtab = (store.codes, store.scale, store.qnorms)
+
+        def f32_lib(i2, q2):
+            return torch.bmm(vec[i2], q2)
+
+        def int8_lib(i2, q2):
+            return torch.bmm(store.codes[i2].float(), q2).squeeze(-1) \
+                * store.scale[i2]
+
+        # (name, args, plain, kernel, bytes per gathered row, yardstick)
+        for name, args, plain, kern, row_bytes, lib in (
             ("gather_distance_batched", (ids, qb, vec, norms),
              gd.gather_distance_batched_plain,
-             gd.gather_distance_batched_cuda),
+             gd.gather_distance_batched_cuda, 4 * d + 8,
+             ("torch.bmm(vectors[ids], q)", f32_lib)),
             ("gather_distance", (ids[0], qb[0], vec, norms),
-             gd.gather_distance_plain, gd.gather_distance_cuda),
+             gd.gather_distance_plain, gd.gather_distance_cuda, 4 * d + 8,
+             ("torch.bmm(vectors[ids], q)", f32_lib)),
             ("gather_distance[no norms]", (ids[0], qb[0], vec, None),
-             gd.gather_distance_plain, gd.gather_distance_cuda),
+             gd.gather_distance_plain, gd.gather_distance_cuda, 4 * d,
+             None),
+            ("gather_distance_batched_q", (ids, qb, *qtab),
+             qg.gather_distance_batched_q_plain,
+             qg.gather_distance_batched_q_cuda, d + 8,
+             ("torch.bmm(codes[ids].float(), q) * scale[ids]", int8_lib)),
         ):
             a = kern(*args, metric="l2")
             p = plain(*args, metric="l2")
@@ -156,21 +269,23 @@ def kernel_phase(seed, n_cap=1_000_000, d=128, r=64, l=128, b=512, h=4,
                 check(torch.allclose(a[fin], p[fin], rtol=1e-5, atol=1e-4),
                       f"{name}: gaussian max err {err}")
             res[name] = {"max_abs_err": err}
-            if not grid and name != "gather_distance[no norms]":
+            if not grid and lib is not None:
                 nvalid = int((args[0] >= 0).sum())
                 nq = args[1].numel() // d
-                by = nvalid * (4 * d + 8) + args[0].numel() * 8 + nq * d * 4
+                # gathered rows with their per-row terms, ids, outputs,
+                # queries
+                by = nvalid * row_bytes + args[0].numel() * 8 + nq * d * 4
                 bms, bby = bound(by, nvalid * 2 * d)
                 ms = cuda_ms(lambda _: kern(*args, metric="l2"), 50)
                 pms = cuda_ms(lambda _: plain(*args, metric="l2"), 20)
                 i2 = args[0].reshape(-1, r).clamp(min=0).long()
                 q2 = args[1].reshape(-1, d, 1)
-                lms = cuda_ms(lambda _: torch.bmm(vec[i2], q2), 20)
+                lms = cuda_ms(lambda _: lib[1](i2, q2), 20)
                 res[name].update(ms=ms, plain_ms=pms, library_ms=lms,
                                  bound_ms=bms, bound_by=bby,
-                                 library_call="torch.bmm(vectors[ids], q)")
+                                 library_call=lib[0])
 
-        # ---- kernel 3: fused beam super-step ------------------------------
+        # ---- kernels 3 and 6: fused beam super-step, f32 and int8 ---------
         adj = torch.randint(0, n_cap, (n_cap, r), generator=gen,
                             device="cuda", dtype=torch.int32)
         adj[torch.rand((n_cap, r), generator=gen, device="cuda") < 0.15] = -1
@@ -180,71 +295,18 @@ def kernel_phase(seed, n_cap=1_000_000, d=128, r=64, l=128, b=512, h=4,
         start = int(torch.nonzero(ret)[0])
         lanes_valid = torch.arange(b, device="cuda") % 17 != 5  # masked lanes
         starts = torch.where(lanes_valid, start, -1).to(torch.int32)
-        bi = torch.full((b, l), -1, dtype=torch.int32, device="cuda")
-        bi[:, 0] = starts
-        bd = torch.full((b, l), float("inf"), device="cuda")
-        d0 = gd.gather_distance_batched_plain(starts[:, None], qb, vec, norms)
-        bd[:, 0] = d0[:, 0]
-        seen = bitset.setbits_rows(
-            bitset.empty_rows(b, n_cap, "cuda"),
-            starts.clamp(min=0).long()[:, None], (starts >= 0)[:, None])
-        carry = (bi, bd, torch.zeros_like(bi), seen,
-                 torch.full((b, mv), -1, dtype=torch.int32, device="cuda"),
-                 torch.full((b, mv), float("inf"), device="cuda"),
-                 torch.zeros((b,), dtype=torch.int32, device="cuda"),
-                 (starts >= 0).to(torch.int32),
-                 torch.zeros((b,), dtype=torch.int32, device="cuda"))
-        static = (adj, vec, norms, nav_w, ret_w)
-        diverged = 0
-        max_err = 0.0
-        for step in range(8):
-            p = bh.beam_hop_fused_plain(qb, *carry, *static, h=h)
-            kc = tuple(t.clone() for t in carry)
-            k_out = bh.beam_hop_fused_cuda(qb, *kc, *static, h=h)
-            torch.cuda.synchronize()
-            same_lane = torch.ones((b,), dtype=torch.bool, device="cuda")
-            for j, (x, y) in enumerate(zip(k_out, p)):
-                if x.dtype == torch.float32:
-                    fin = torch.isfinite(y)
-                    same_lane &= (torch.isfinite(x) == fin).reshape(b, -1)\
-                        .all(1)
-                    if fin.any():
-                        e = (x[fin] - y[fin]).abs().max()
-                        max_err = max(max_err, float(e))
-                    ok = torch.isclose(x, y, rtol=1e-5, atol=1e-4) | ~fin
-                else:
-                    ok = x == y
-                same_lane &= ok.reshape(b, -1).all(1)
-            bad = int((~same_lane).sum())
-            if grid:
-                check(bad == 0 and all(torch.equal(x, y)
-                                       for x, y in zip(k_out, p)),
-                      f"beam_hop_fused: grid data not bitwise at step {step}")
-            diverged = max(diverged, bad)
-            carry = p
-        check(diverged <= b // 100,
-              f"beam_hop_fused: {diverged} of {b} lanes diverge")
-        res["beam_hop_fused"] = {"max_abs_err": max_err,
-                                 "diverged_lanes": diverged}
-        if not grid:
-            # time one super-step from the mid-search carry of step 4
-            c0 = tuple(t.clone() for t in carry)
-            pc = bh.beam_hop_fused_plain(qb, *c0, *static, h=h)
-            dcomp = int((pc[7] - c0[7]).sum())
-            dhop = int((pc[8] - c0[8]).sum())
-            ms = cuda_ms(lambda c: bh.beam_hop_fused_cuda(qb, *c, *static,
-                                                          h=h), 10,
-                         setup=lambda: tuple(t.clone() for t in c0))
-            pms = cuda_ms(lambda c: bh.beam_hop_fused_plain(qb, *c, *static,
-                                                            h=h), 3,
-                          setup=lambda: c0)
-            carry_bytes = b * (l * 12 * 2 + mv * 8 + 24 + d * 4)
-            by = (dcomp * (4 * d + 4) + dhop * (4 * r + 8 * r + 8)
-                  + carry_bytes)
-            bms, bby = bound(by, dcomp * 2 * d)
-            res["beam_hop_fused"].update(ms=ms, plain_ms=pms, library_ms=None,
-                                         bound_ms=bms, bound_by=bby,
-                                         rows_gathered=dcomp, hops=dhop)
+        for name, plain, kern, tables, row_bytes, d0_fn in (
+            ("beam_hop_fused", bh.beam_hop_fused_plain,
+             bh.beam_hop_fused_cuda, (vec, norms), 4 * d + 4,
+             lambda st: gd.gather_distance_batched_plain(st, qb, vec, norms)),
+            ("beam_hop_fused_q", bh.beam_hop_fused_q_plain,
+             bh.beam_hop_fused_q_cuda, qtab, d + 8,
+             lambda st: qg.gather_distance_batched_q_plain(st, qb, *qtab)),
+        ):
+            static = (adj, *tables, nav_w, ret_w)
+            res[name] = hop_parity(name, plain, kern, qb, static, starts,
+                                   d0_fn(starts[:, None])[:, 0], grid, n_cap,
+                                   l, mv, h, row_bytes)
 
         # ---- kernel 4: brute-force top-k ----------------------------------
         qt = queries[:q_topk].contiguous()
@@ -278,7 +340,7 @@ def kernel_phase(seed, n_cap=1_000_000, d=128, r=64, l=128, b=512, h=4,
             res["topk_score"].update(
                 ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
                 bound_by=bby, library_call="torch.topk(torch.addmm(...))")
-        del vec, adj, queries
+        del vec, adj, queries, store, qtab
         torch.cuda.empty_cache()
         rows[data] = res
     return rows
@@ -418,8 +480,86 @@ def main_path(seed, live, n_queries=1024, window=512, boot=256):
     log(f"inserts/s {out['insert']['per_s']:.1f}, deletes/s "
         f"{out['delete']['per_s']:.1f}, QPS {out['qps']:.1f}, peak mem "
         f"{out['peak_mem_bytes'] / 2**30:.2f} GiB, launches {out['launches']}")
-    for name, n in out["launches"].items():
-        check(n > 0, f"kernel {name} never launched on the main path")
+    for name in F32_PATH:
+        check(out["launches"][name] > 0,
+              f"kernel {name} never launched on the f32 path")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the quantized path, StreamingIndex + run_runbook
+# ---------------------------------------------------------------------------
+
+
+def quant_path(seed, n, t_max=16, eval_every=4, qb=256, n_qps=1024):
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (ANNConfig, StreamingIndex, run_runbook,
+                                  sliding_window_runbook)
+    from repro_torch.kernels import gather_distance as gd
+    from repro_torch.kernels import ops
+
+    rb = sliding_window_runbook(n=n, dim=128, t_max=t_max, seed=seed)
+    cfg = ANNConfig(dim=128, n_cap=1_000_000, quantized=True)
+    out = {"cfg": {"dim": cfg.dim, "n_cap": cfg.n_cap, "quantized": True,
+                   "r": cfg.r, "l_build": cfg.l_build,
+                   "l_search": cfg.l_search},
+           "runbook": {"name": rb.name, "n": n, "t_max": t_max,
+                       "eval_every": eval_every, "eval_from": rb.eval_from,
+                       "max_active": rb.max_active,
+                       "n_queries": len(rb.queries)}}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    idx = StreamingIndex(cfg, mode="ip", batch_updates=True,
+                         max_external_id=n)
+    check(idx.state.quant is not None and idx.state.quant.codes.is_cuda,
+          "the quantized state is not on the card")
+    rep = run_runbook(idx, rb, k=10, eval_every=eval_every, verbose=True)
+    torch.cuda.synchronize()
+    out["runbook_s"] = time.perf_counter() - t0
+    c = rep.counters
+    out["evals"] = [dataclasses.asdict(m) for m in rep.steps]
+    out["avg_recall"] = rep.avg_recall
+    out["counters"] = dataclasses.asdict(c)
+    out["inserts_per_s"] = c.n_inserts / c.insert_s
+    out["deletes_per_s"] = c.n_deletes / c.delete_s
+    check(rep.avg_recall >= 0.90,
+          f"quantized path: average Recall@10 {rep.avg_recall:.4f} < 0.90")
+
+    # QPS at B = qb: the runbook's queries, tiled to n_qps
+    reps = -(-n_qps // len(rb.queries))
+    qs = np.tile(rb.queries, (reps, 1))[:n_qps]
+    idx.search(qs[:qb])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for lo in range(0, n_qps, qb):
+        idx.search(qs[lo:lo + qb])
+    torch.cuda.synchronize()
+    out["qps"] = n_qps / (time.perf_counter() - t1)
+    out["query_batch"] = qb
+
+    ext, dists, slots = idx.search(rb.queries, k=10)
+    out["launches"] = ops.launch_counts()
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    deleted = np.concatenate([s.delete_ids for s in rb.steps])
+    check(not np.isin(ext, deleted).any(),
+          "quantized path: a deleted external id was returned")
+    st = idx.state
+    rescore = gd.gather_distance_batched_cuda(
+        torch.from_numpy(slots).to("cuda", torch.int32),
+        torch.from_numpy(rb.queries).cuda(), st.vectors, st.norms)
+    check(torch.equal(rescore.cpu(), torch.from_numpy(dists)),
+          "quantized path: returned distances are not the exact rescore")
+    log(f"quantized path: avg Recall@10 {rep.avg_recall:.4f}, inserts/s "
+        f"{out['inserts_per_s']:.1f}, deletes/s {out['deletes_per_s']:.1f}, "
+        f"QPS {out['qps']:.1f}, peak mem "
+        f"{out['peak_mem_bytes'] / 2**30:.2f} GiB, launches {out['launches']}")
+    for name in QUANT_PATH:
+        check(out["launches"][name] > 0,
+              f"kernel {name} never launched on the quantized path")
     return out
 
 
@@ -462,28 +602,103 @@ def engines_agree(seed):
                            "res": res, "dels": dels, "did": did}
     a, b = finals["cuda"], finals["torch"]
     check(a["did"] and b["did"], "phase 4: the sweep did not fire")
-    flat = []
-
-    def walk(x, y, path):
-        if isinstance(x, torch.Tensor):
-            flat.append((path, torch.equal(x, y)))
-        elif x is not None:
-            for f, xx, yy in zip(x._fields, x, y):
-                walk(xx, yy, f"{path}.{f}")
-
-    walk(a["state"], b["state"], "state")
-    walk(a["res"], b["res"], "search")
+    flat = differing_leaves(a["state"], b["state"], "state") + \
+        differing_leaves(a["res"], b["res"], "search")
     bad = [p for p, ok in flat if not ok]
     check(torch.equal(a["ext"], b["ext"]) and not bad,
           f"phase 4: cuda and torch engines differ in {bad}")
     return {"fields_compared": len(flat), "identical": True}
 
 
+def differing_leaves(x, y, path):
+    """``[(path, equal)]`` over every tensor leaf of two nested tuples."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return [(path, torch.equal(x, y))]
+    if x is None:
+        return [(path, y is None)]
+    return [leaf for f, xx, yy in zip(x._fields, x, y)
+            for leaf in differing_leaves(xx, yy, f"{path}.{f}")]
+
+
+def qgrid(rng, n, d):
+    """Grid rows with one entry at +-127/16: every int8 scale is 2^-4, so
+    the quantized distances are exact in float32."""
+    import numpy as np
+
+    x = rng.integers(-64, 65, size=(n, d)) / 16
+    x[np.arange(n), rng.integers(0, d, size=n)] = \
+        np.where(rng.random(n) < 0.5, -1.0, 1.0) * 127 / 16
+    return x.astype(np.float32)
+
+
+def quant_engines_agree(seed, n_pts=900, n_cap=256):
+    """A quantized ``StreamingIndex`` stream on grid data that grows from
+    ``n_cap`` through two capacity buckets, with the cuda engine at H = 0
+    (the int8 gather kernel carries every hop) and H = 4 (the fused int8
+    kernel), and the torch engine at both: four identical ends."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import test_scale
+    from repro_torch.core import StreamingIndex
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(seed + 3)
+    data = qgrid(rng, n_pts, 32)
+    q = qgrid(rng, 64, 32)
+    dels = rng.choice(700, size=200, replace=False)
+    runs = {}
+    for backend, hops in (("cuda", 0), ("cuda", 4), ("torch", 0),
+                          ("torch", 4)):
+        cfg = dataclasses.replace(test_scale(dim=32, n_cap=n_cap,
+                                             backend=backend),
+                                  quantized=True, hop_fused=hops)
+        idx = StreamingIndex(cfg, batch_updates=True, max_external_id=n_pts)
+        ops.reset_launch_counts()
+        caps = [idx.cfg.n_cap]
+        for lo in range(0, 700, 128):
+            ids = np.arange(lo, min(lo + 128, 700))
+            idx.insert(ids, data[ids])
+            caps.append(idx.cfg.n_cap)
+        idx.delete(dels[:150])
+        idx.insert(np.arange(700, n_pts), data[700:])
+        idx.delete(dels[150:])
+        idx.maybe_consolidate(force=True)
+        ext, dist, slots = idx.search(q, k=10)
+        runs[(backend, hops)] = {
+            "state": idx.istate, "ext": ext, "dist": dist, "slots": slots,
+            "caps": sorted(set(caps)), "launches": ops.launch_counts()}
+    base = runs[("cuda", 0)]
+    check(len(base["caps"]) >= 3,
+          f"phase 4: the stream grew through {base['caps']} only")
+    check(base["launches"]["gather_distance_batched_q"] > 0
+          and base["launches"]["beam_hop_fused_q"] == 0,
+          f"phase 4: H = 0 launches {base['launches']}")
+    check(runs[("cuda", 4)]["launches"]["beam_hop_fused_q"] > 0,
+          "phase 4: H = 4 did not launch the fused int8 kernel")
+    n_fields = 0
+    for key, run in runs.items():
+        flat = differing_leaves(base["state"], run["state"], "state")
+        bad = [p for p, ok in flat if not ok]
+        same = all(np.array_equal(base[f], run[f])
+                   for f in ("ext", "dist", "slots"))
+        check(same and not bad and run["caps"] == base["caps"],
+              f"phase 4: quantized {key} differs from cuda H=0 in {bad}")
+        n_fields = len(flat)
+    return {"fields_compared": n_fields, "capacities": base["caps"],
+            "runs": [f"{b}/H={h}" for b, h in runs], "identical": True}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--live", type=int, default=8192,
-                    help="points linked into the 10^6-slot table")
+    ap.add_argument("--live", type=int, default=4096,
+                    help="points linked into the f32 path's 10^6-slot table")
+    ap.add_argument("--runbook-n", type=int, default=8192,
+                    help="points of the quantized path's sliding window "
+                         "(at most half of them live)")
     args = ap.parse_args(argv)
 
     import torch
@@ -528,21 +743,33 @@ def main(argv=None):
     t0 = time.perf_counter()
     record["main"] = main_path(args.seed, args.live)
     record["main"]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    record["quant"] = quant_path(args.seed, args.runbook_n)
+    record["quant"]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     record["engines"] = engines_agree(args.seed)
     log(f"cuda vs torch engines: {record['engines']}")
+    record["quant_engines"] = quant_engines_agree(args.seed)
+    log(f"quantized cuda vs torch engines: {record['quant_engines']}")
+    record["engines_s"] = time.perf_counter() - t0
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
 
     gauss, grid = record["kernels"]["gauss"], record["kernels"]["grid"]
-    launches = record["main"]["launches"]
     rows = []
     for name in TPU_SITES:
         g = gauss.get(name, {})
+        # each kernel's launches on the path it was ported for: the f32
+        # path (phase 3) for kernels 1-4, the quantized path (3b) for 5-6
+        path = "main" if name in F32_PATH else "quant"
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": TPU_SITES[name], "launches": launches.get(name, 0),
+            "replaces": TPU_SITES[name],
+            "launches": record[path]["launches"].get(name, 0),
+            "launches_by_path": {p: record[p]["launches"].get(name, 0)
+                                 for p in ("main", "quant")},
             "max_abs_err": g.get("max_abs_err"),
             "grid_bitwise": name in grid,
             "ms": g.get("ms"), "kernel_ms": g.get("ms"),

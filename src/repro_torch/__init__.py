@@ -11,10 +11,12 @@ from . import configs, core, kernels  # noqa: F401
 from .core import (  # noqa: F401
     ANNConfig,
     IndexState,
+    StreamingIndex,
     apply,
     graph_recall,
     init_index_state,
     make_dataset,
     maybe_consolidate,
+    run_runbook,
     search_index,
 )

@@ -2,10 +2,12 @@
 
 The layout is the reference's: ``{"graph": {field: array}, "ext2slot": ...,
 "slot2ext": ..., "n_inserts": ..., ...}`` with the graph fields of
-``GraphState`` in order (``quant`` is None).  A reference state becomes this
-dict with ``repro.core.types.as_numpy_state`` on its ``graph`` plus
-``np.asarray`` on the other leaves; ``index_state_from_numpy`` turns it into
-the port's tensors and ``index_state_to_numpy`` back.  Packed bitmaps are
+``GraphState`` in order; ``quant`` is None or the int8 tier's ``{codes,
+scale, qnorms}`` arrays (a dict, or the reference's ``QuantStore`` of numpy
+arrays).  A reference state becomes this dict with
+``repro.core.types.as_numpy_state`` on its ``graph`` plus ``np.asarray`` on
+the other leaves; ``index_state_from_numpy`` turns it into the port's
+tensors and ``index_state_to_numpy`` back.  Packed bitmaps are
 uint32 in the reference and int32 with the same bits here
 (``words_from_numpy`` / ``words_to_numpy``).
 """
@@ -14,12 +16,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.quant import QuantStore
 from .core.types import GraphState, IndexState, resolve_device
 
 _INDEX_LEAVES = ("ext2slot", "slot2ext", "n_inserts", "n_deletes",
                  "insert_comps", "delete_comps")
 _DTYPES = {np.dtype(np.float32): torch.float32,
            np.dtype(np.int32): torch.int32,
+           np.dtype(np.int8): torch.int8,
            np.dtype(np.bool_): torch.bool}
 
 
@@ -33,10 +37,12 @@ def _tensor(a, device) -> torch.Tensor:
 
 def graph_state_from_numpy(g: dict, device=None) -> GraphState:
     dev = resolve_device(device)
-    if g.get("quant") is not None:
-        raise NotImplementedError("the int8 tier is not ported yet")
+    q = g.get("quant")
+    if q is not None:
+        q = q if isinstance(q, dict) else q._asdict()
+        q = QuantStore(*(_tensor(q[f], dev) for f in QuantStore._fields))
     return GraphState(*(_tensor(g[f], dev) for f in GraphState._fields
-                        if f != "quant"), quant=None)
+                        if f != "quant"), quant=q)
 
 
 def index_state_from_numpy(d: dict, device=None) -> IndexState:
@@ -48,8 +54,11 @@ def index_state_from_numpy(d: dict, device=None) -> IndexState:
 
 
 def graph_state_to_numpy(g: GraphState) -> dict:
-    return {f: (None if v is None else v.cpu().numpy())
-            for f, v in g._asdict().items()}
+    out = {f: v.cpu().numpy() for f, v in g._asdict().items()
+           if f != "quant"}
+    out["quant"] = None if g.quant is None else {
+        f: v.cpu().numpy() for f, v in g.quant._asdict().items()}
+    return out
 
 
 def index_state_to_numpy(state: IndexState) -> dict:

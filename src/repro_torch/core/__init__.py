@@ -1,5 +1,7 @@
 # IP-DiskANN's streaming loop (insert, in-place delete, beam search,
-# recall) on PyTorch tensors, with hand-written CUDA kernels on the card.
+# recall), the StreamingIndex shell with capacity growth, the runbook
+# driver and the int8 quantized tier, on PyTorch tensors, with hand-written
+# CUDA kernels on the card.
 from .api import (
     UpdatePolicy,
     apply,
@@ -27,10 +29,17 @@ from .backend import (
 from .batched import insert_many_batched, ip_delete_many_batched
 from .consolidate import consolidation_due, light_consolidate
 from .delete import ip_delete, ip_delete_many
+from .driver import RunbookReport, StepMetrics, run_runbook
+from .grow import (HIGH_WATER, ensure_capacity, grow_index, needs_growth,
+                   next_capacity)
+from .index import EvalCounters, OpCounters, StreamingIndex
 from .insert import insert, insert_many
 from .prune import robust_prune, robust_prune_rows
+from .quant import (QuantStore, dequantize_rows, init_quant_store,
+                    quant_dists_to_ids_batched, quant_write_rows,
+                    quantize_rows)
 from .recall import brute_force_topk, graph_recall, recall_at_k
-from .runbook import make_dataset, make_runbook
+from .runbook import make_dataset, make_runbook, sliding_window_runbook
 from .search import SearchResult, greedy_search, search_batch
 from .search_batched import batched_greedy_search, resolved_hop_fused
 from .types import (

@@ -9,8 +9,10 @@ slots", and goes through a ``DistanceBackend``.  Three engines:
   * ``ref``   — the plain kernel oracles (``kernels/ref.py``);
   * ``cuda``  — the hand-written Hopper kernels: ``gather_distance`` for the
                 beam loop, ``beam_hop_fused`` for the fused super-step,
-                ``topk_score`` for the exact scan.  It raises on tensors that
-                are not on a CUDA device.
+                ``topk_score`` for the exact scan, and their int8 twins
+                ``gather_distance_batched_q`` / ``beam_hop_fused_q`` for the
+                quantized tier.  It raises on tensors that are not on a
+                CUDA device.
 
 ``ANNConfig.backend = "auto"`` resolves by the device of the state's
 tensors: ``cuda`` for CUDA tensors, ``torch`` for CPU tensors.
@@ -63,6 +65,29 @@ class DistanceBackend:
 
         return superstep_reference(
             self.dists_to_ids_batched, state, cfg, queries, carry,
+            h=h, l=l, max_visits=max_visits,
+        )
+
+    # -- the quantized memory tier (core/quant.py) --------------------------
+
+    def dists_to_ids_batched_q(self, state: GraphState, cfg: ANNConfig,
+                               queries, ids):
+        """f32[B, M] traversal-tier distances from ``queries[b]`` to the
+        int8 codes of slots ``ids[b]`` (``state.quant`` present); inf where
+        INVALID.  Default: the plain math of ``core/quant.py``."""
+        from .quant import quant_dists_to_ids_batched
+
+        return quant_dists_to_ids_batched(state, cfg, queries, ids)
+
+    def beam_superstep_q(self, state: GraphState, cfg: ANNConfig, queries,
+                         carry, *, h: int, l: int, max_visits: int,
+                         masks=None):
+        """``beam_superstep`` over the quantized tier: the same carry
+        contract, distances from ``dists_to_ids_batched_q``."""
+        from .search_batched import superstep_reference
+
+        return superstep_reference(
+            self.dists_to_ids_batched_q, state, cfg, queries, carry,
             h=h, l=l, max_visits=max_visits,
         )
 
@@ -189,6 +214,13 @@ class RefBackend(TorchBackend):
         return ref.gather_distance_batched_ref(ids, queries, state.vectors,
                                                metric=cfg.metric)
 
+    def dists_to_ids_batched_q(self, state, cfg, queries, ids):
+        from ..kernels import ref
+
+        q = state.quant
+        return ref.quant_gather_distance_batched_ref(
+            ids, queries, q.codes, q.scale, q.qnorms, metric=cfg.metric)
+
     def brute_force_topk(self, state, cfg, queries, *, k):
         from ..kernels import ref
 
@@ -222,19 +254,27 @@ class CudaBackend(TorchBackend):
                        max_visits, masks=None):
         from ..kernels.beam_hop import beam_hop_fused_cuda
 
-        if masks is None:
-            masks = pack_masks(state)
-        nav_words, ret_words = masks
-        exp = carry.beam_exp.to(torch.int32)
-        out = beam_hop_fused_cuda(
-            queries, carry.beam_ids, carry.beam_dists, exp, carry.seen,
-            carry.vis_ids, carry.vis_dists, carry.n_vis, carry.n_comps,
-            carry.n_hops, state.adj, state.vectors, state.norms, nav_words,
-            ret_words, metric=cfg.metric, h=h,
+        return _fused_superstep(beam_hop_fused_cuda, state, cfg, queries,
+                                carry, (state.vectors, state.norms), h,
+                                masks)
+
+    def dists_to_ids_batched_q(self, state, cfg, queries, ids):
+        from ..kernels.quant_gather import gather_distance_batched_q_cuda
+
+        q = state.quant
+        return gather_distance_batched_q_cuda(
+            ids.to(torch.int32), queries, q.codes, q.scale, q.qnorms,
+            metric=cfg.metric,
         )
-        bi, bd, be, seen, vi, vd, n_vis, n_comps, n_hops = out
-        return type(carry)(bi, bd, be != 0, seen, vi, vd, n_vis, n_comps,
-                           n_hops)
+
+    def beam_superstep_q(self, state, cfg, queries, carry, *, h, l,
+                         max_visits, masks=None):
+        from ..kernels.beam_hop import beam_hop_fused_q_cuda
+
+        q = state.quant
+        return _fused_superstep(beam_hop_fused_q_cuda, state, cfg, queries,
+                                carry, (q.codes, q.scale, q.qnorms), h,
+                                masks)
 
     def brute_force_topk(self, state, cfg, queries, *, k):
         from ..kernels.topk_score import topk_score_cuda
@@ -243,6 +283,25 @@ class CudaBackend(TorchBackend):
             queries, state.vectors, state.norms, bias, k=k,
             metric=cfg.metric,
         ))
+
+
+def _fused_superstep(kernel, state, cfg, queries, carry, tables, h, masks):
+    """One launch of a fused hop kernel over ``tables`` (the f32 rows and
+    norms, or the int8 codes, scales and qnorms); the launch updates the
+    carry's tensors in place."""
+    if masks is None:
+        masks = pack_masks(state)
+    nav_words, ret_words = masks
+    exp = carry.beam_exp.to(torch.int32)
+    out = kernel(
+        queries, carry.beam_ids, carry.beam_dists, exp, carry.seen,
+        carry.vis_ids, carry.vis_dists, carry.n_vis, carry.n_comps,
+        carry.n_hops, state.adj, *tables, nav_words, ret_words,
+        metric=cfg.metric, h=h,
+    )
+    bi, bd, be, seen, vi, vd, n_vis, n_comps, n_hops = out
+    return type(carry)(bi, bd, be != 0, seen, vi, vd, n_vis, n_comps,
+                       n_hops)
 
 
 def pack_masks(state: GraphState):

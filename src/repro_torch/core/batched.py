@@ -14,6 +14,7 @@ from .delete import DeleteStats, repair_edges
 from .edges import append_rows
 from .insert import InsertStats
 from .prune import robust_prune
+from .quant import quant_write_rows
 from .search_batched import batched_greedy_search
 from .types import INVALID, ANNConfig, GraphState, clip_ids
 
@@ -53,6 +54,10 @@ def insert_many_batched(state: GraphState, cfg: ANNConfig, xs: torch.Tensor,
     sw = slots[w].long()
     state.vectors[sw] = xs_f[w]
     state.norms[sw] = (xs_f[w] * xs_f[w]).sum(1)
+    if state.quant is not None:
+        # the int8 tier too, so the phase-1 searches (which traverse on
+        # quantized distances) see a consistent code table
+        quant_write_rows(state.quant, sw, xs_f[w])
 
     # phase 1: one shared-hop-loop search for every lane
     t0 = _now(dev)

@@ -1,0 +1,114 @@
+"""Runbook driver (``repro/core/driver.py``): replay an update stream against
+a ``StreamingIndex`` and record per-step recall, distance computations and
+throughput (the paper's §4 loop, Figure 1).
+
+The per-op path only: ``segmented=True`` waits for compiled segments
+(ROADMAP Queue 1, slice 10) and ``baseline="hnsw"`` for the HNSW baseline
+(slice 9); both raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List, Optional
+
+import numpy as np
+
+from .index import StreamingIndex
+from .runbook import Runbook
+
+
+@dataclasses.dataclass
+class StepMetrics:
+    step: int
+    n_active: int
+    recall: float
+    comps_per_query: float
+    qps: float
+
+
+@dataclasses.dataclass
+class RunbookReport:
+    name: str
+    mode: str
+    steps: List[StepMetrics]
+    counters: "object"            # serving-side OpCounters
+    avg_recall: float = 0.0
+    eval_counters: "object" = None  # evaluation-side accounting
+
+    def summary(self) -> dict:
+        """Serving-side load only; evaluation sweeps are reported under
+        separate ``eval_*`` keys."""
+        c = self.counters
+        out = {
+            "runbook": self.name,
+            "mode": self.mode,
+            "avg_recall@10": round(self.avg_recall, 4),
+            "insert_s": round(c.insert_s, 3),
+            "delete_s": round(c.delete_s, 3),
+            "segment_s": round(c.segment_s, 3),
+            "search_s": round(c.search_s, 3),
+            "n_consolidations": c.n_consolidations,
+        }
+        if self.eval_counters is not None:
+            out["eval_search_s"] = round(self.eval_counters.search_s, 3)
+            out["eval_queries"] = self.eval_counters.n_queries
+        return out
+
+
+def run_runbook(index: StreamingIndex, rb: Runbook, *, k: int = 10,
+                eval_every: int = 1, max_steps: Optional[int] = None,
+                segmented: bool = False, verbose: bool = False,
+                baseline: Optional[str] = None) -> RunbookReport:
+    """Replay ``rb`` against ``index``: per step, the inserts then the
+    deletes, and every ``eval_every``-th step a Recall@k evaluation over
+    the runbook's queries (booked into ``index.eval_counters``)."""
+    if baseline is not None:
+        if baseline != "hnsw":
+            raise ValueError(f"unknown baseline {baseline!r}")
+        raise NotImplementedError(
+            "the HNSW baseline is not ported yet (ROADMAP Queue 1, slice 9)"
+        )
+    if segmented:
+        raise NotImplementedError(
+            "segmented replay is not ported yet (ROADMAP Queue 1, slice 10)"
+        )
+    metrics: List[StepMetrics] = []
+    steps = rb.steps[:max_steps] if max_steps else rb.steps
+
+    def eval_at(t: int) -> None:
+        if index.n_active <= k:
+            return
+        t0 = time.perf_counter()
+        comps0 = index.eval_counters.search_comps
+        r = index.recall(rb.queries, k=k)
+        dt = time.perf_counter() - t0
+        dcomps = index.eval_counters.search_comps - comps0
+        metrics.append(StepMetrics(
+            step=t, n_active=index.n_active, recall=r,
+            comps_per_query=dcomps / len(rb.queries),
+            qps=len(rb.queries) / max(dt, 1e-9),
+        ))
+        if verbose:
+            m = metrics[-1]
+            print(f"[{rb.name}:{index.mode}] step {t:4d} "
+                  f"active={m.n_active:6d} recall@{k}={m.recall:.3f} "
+                  f"comps/q={m.comps_per_query:.0f}")
+
+    for t, step in enumerate(steps):
+        if len(step.insert_ids):
+            index.insert(step.insert_ids, rb.data[step.insert_ids])
+        if len(step.delete_ids):
+            index.delete(step.delete_ids)
+        if t % eval_every == 0:
+            eval_at(t)
+    evald = [m for m in metrics if m.step >= rb.eval_from]
+    avg = float(np.mean([m.recall for m in evald])) if evald else float("nan")
+    return RunbookReport(
+        name=rb.name, mode=index.mode, steps=metrics,
+        counters=index.counters, avg_recall=avg,
+        eval_counters=index.eval_counters,
+    )
+
+
+__all__ = ["RunbookReport", "StepMetrics", "run_runbook"]

@@ -8,6 +8,7 @@ import torch
 
 from .edges import append_rows
 from .prune import robust_prune
+from .quant import quant_write_rows
 from .search import greedy_search
 from .types import INVALID, ANNConfig, GraphState
 
@@ -33,6 +34,10 @@ def insert(state: GraphState, cfg: ANNConfig, x: torch.Tensor):
     x = x.to(state.vectors.dtype)
     state.vectors[slot] = x
     state.norms[slot] = torch.dot(x, x)
+    if state.quant is not None:
+        # keep the int8 tier in lockstep with the f32 write
+        quant_write_rows(state.quant, torch.tensor([slot], device=dev),
+                         x[None])
     state.free_top.sub_(1)
     state.n_active.add_(1)
     if int(state.start) < 0:

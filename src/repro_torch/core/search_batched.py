@@ -160,14 +160,21 @@ def batched_greedy_search(state: GraphState, cfg: ANNConfig,
                           ) -> SearchResult:
     """GreedySearch (Algorithm 1) for B queries in one shared hop loop.
     ``valid`` (bool[B]) masks whole lanes out: a masked lane starts with an
-    empty beam and returns all-INVALID results."""
-    if cfg.quantized:
-        raise NotImplementedError("the int8 tier is not ported yet")
+    empty beam and returns all-INVALID results.
+
+    When ``cfg.quantized`` is set and the state carries a quant store, the
+    hops traverse on int8 traversal-tier distances
+    (``dists_to_ids_batched_q``), the surviving beam is rescored exactly
+    against the f32 table (adding its returnable entries to ``n_comps``),
+    and ``topk_dists`` are recomputed on exactly the returned ids."""
     if max_visits is None:
         max_visits = cfg.max_visits(l)
     dev = state.vectors.device
     backend = resolve_backend(cfg, dev)
-    dist_fn = distance_fn or backend.dists_to_ids_batched
+    # an explicit distance_fn override wins over the quantized tier
+    use_q = cfg.quantized and state.quant is not None and distance_fn is None
+    dist_fn = distance_fn or (backend.dists_to_ids_batched_q if use_q
+                              else backend.dists_to_ids_batched)
     queries = queries.to(torch.float32).contiguous()
 
     b = queries.shape[0]
@@ -208,17 +215,34 @@ def batched_greedy_search(state: GraphState, cfg: ANNConfig,
                                        l=l, max_visits=max_visits)
     else:
         masks = pack_masks(state) if backend.name == "cuda" else None
+        superstep = backend.beam_superstep_q if use_q \
+            else backend.beam_superstep
 
         def body(c):
-            return backend.beam_superstep(state, cfg, queries, c, h=h, l=l,
-                                          max_visits=max_visits,
-                                          masks=masks)
+            return superstep(state, cfg, queries, c, h=h, l=l,
+                             max_visits=max_visits, masks=masks)
 
     while bool(lane_active(s, max_visits).any()):
         s = body(s)
 
+    if use_q:
+        # exact rescore: re-rank the surviving beam against the f32 table,
+        # so neither the selection nor the reported distances carry
+        # quantization error
+        ret = state.active[clip_ids(s.beam_ids, cfg.n_cap)] & \
+            (s.beam_ids >= 0)
+        beam_d = backend.dists_to_ids_batched(
+            state, cfg, queries,
+            torch.where(ret, s.beam_ids, torch.full_like(s.beam_ids,
+                                                         INVALID)))
+        s = s._replace(beam_dists=beam_d,
+                       n_comps=s.n_comps + ret.sum(1).to(torch.int32))
     ids, dists = final_topk(s.beam_ids, s.beam_dists, state.active,
                             cfg.n_cap, k)
+    if use_q:
+        # recomputed on exactly the returned ids: bit-equal to a caller's
+        # f32 rescore of those ids
+        dists = backend.dists_to_ids_batched(state, cfg, queries, ids)
     return SearchResult(
         topk_ids=ids, topk_dists=dists, visited_ids=s.vis_ids,
         visited_dists=s.vis_dists, n_visited=s.n_vis, n_comps=s.n_comps,

@@ -13,6 +13,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .quant import QuantStore, init_quant_store
+
 INVALID = -1
 KIND_INSERT = 0
 KIND_DELETE = 1
@@ -43,7 +45,8 @@ class ANNConfig:
     # hops per super-step of the batched hop loop: -1 = auto (4 where the
     # cuda engine resolves, 0 elsewhere), 0 = off, H >= 1 = fused
     hop_fused: int = -1
-    # the int8 tier is not ported yet: True raises at state creation
+    # the int8 quantized memory tier (core/quant.py): the batched engine
+    # traverses on int8 codes and rescores the final beam in f32
     quantized: bool = False
     # "local" policy in-neighbour repair bound (0 = auto, 2r)
     local_in_cap: int = 0
@@ -83,7 +86,8 @@ class GraphState(NamedTuple):
     start: torch.Tensor       # i32[]  entry point (INVALID when empty)
     n_active: torch.Tensor    # i32[]
     n_pending: torch.Tensor   # i32[]  quarantined (ip) count
-    quant: Optional[object] = None  # always None until the int8 tier
+    # the int8 tier (core/quant.py), present iff ``cfg.quantized``
+    quant: Optional[QuantStore] = None
 
 
 class IndexState(NamedTuple):
@@ -126,10 +130,6 @@ def _i32(v, device) -> torch.Tensor:
 
 def init_state(cfg: ANNConfig, device=None,
                dtype=torch.float32) -> GraphState:
-    if cfg.quantized:
-        raise NotImplementedError(
-            "the int8 quantized tier is not ported to repro_torch yet"
-        )
     dev = resolve_device(device)
     n = cfg.n_cap
     return GraphState(
@@ -145,7 +145,7 @@ def init_state(cfg: ANNConfig, device=None,
         start=_i32(INVALID, dev),
         n_active=_i32(0, dev),
         n_pending=_i32(0, dev),
-        quant=None,
+        quant=init_quant_store(n, cfg.dim, dev) if cfg.quantized else None,
     )
 
 

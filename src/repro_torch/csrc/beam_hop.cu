@@ -1,7 +1,9 @@
-// Fused multi-hop beam-search super-step.
+// Fused multi-hop beam-search super-step, over the f32 table or the int8
+// code table of the quantized tier.
 //
-// Replaces the TPU kernel repro/kernels/beam_hop.py::beam_hop_fused (body
-// _kernel, per-lane step _lane_hop): H masked hops per lane in one launch.
+// Replaces the TPU kernels repro/kernels/beam_hop.py::beam_hop_fused (body
+// _kernel, per-lane step _lane_hop) and ::beam_hop_fused_q (body _kernel_q,
+// the `scales=` path of _lane_hop): H masked hops per lane in one launch.
 // Each hop pops the closest unexpanded beam entry (first minimum), records
 // it in the visited list if it is returnable, reads its adjacency row,
 // keeps the neighbours that are navigable and not yet seen, computes their
@@ -10,8 +12,13 @@
 // lane is an exact no-op, so it leaves the hop loop at once.
 //
 // Bound on the H100: bytes, in the random row gathers (per hop and lane an
-// R-int adjacency row plus up to R rows of 4D bytes and their norms); the
-// beam merge and the argmin are a few thousand shared-memory comparisons.
+// R-int adjacency row plus up to R rows of 4D bytes and their norms, or of
+// D int8 bytes and their scales and qnorms); the beam merge and the argmin
+// are a few thousand shared-memory comparisons.  The kernel is templated on
+// the row type: only the distance line differs.  Over int8 rows the raw
+// dot is warp_dot_i8 (shared with the quantized gather kernel), the row's
+// scale multiplies the product with an explicit rounding, and `norms` are
+// the cached qnorms of the dequantized rows.
 // Design: one block per lane keeps its beam (double-buffered), the popped
 // adjacency row and the R new distances in shared memory across all H hops;
 // one warp scores one neighbour with the same warp_dot as the gather kernel,
@@ -37,12 +44,26 @@ __device__ __forceinline__ bool test_bit(const int* words, int id) {
   return ((__ldcg(words + (id >> 5)) >> (id & 31)) & 1) != 0;
 }
 
-template <bool L2>
+// The raw row . q dot of each row type (the int8 one before its scale).
+__device__ __forceinline__ float row_dot(const float* x, const float* q,
+                                         int D, int lane) {
+  return warp_dot(x, q, D, lane);
+}
+__device__ __forceinline__ float row_dot(const signed char* x, const float* q,
+                                         int D, int lane) {
+  return warp_dot_i8(x, q, D, lane);
+}
+
+// T = float: `rows` is the f32 table, `norms` its squared norms, `scales`
+// unused.  T = signed char: `rows` is the int8 code table, `scales` the
+// per-row scales, `norms` the qnorms.
+template <typename T, bool L2>
 __global__ void __launch_bounds__(NT)
 beam_hop_kernel(const float* __restrict__ queries, int* beam_ids,
                 float* beam_dists, int* beam_exp, int* seen, int* vis_ids,
                 float* vis_dists, int* n_vis, int* n_comps, int* n_hops,
-                const int* __restrict__ adj, const float* __restrict__ vectors,
+                const int* __restrict__ adj, const T* __restrict__ rows,
+                const float* __restrict__ scales,
                 const float* __restrict__ norms,
                 const int* __restrict__ nav_words,
                 const int* __restrict__ ret_words, int l, int r, int mv,
@@ -151,7 +172,8 @@ beam_hop_kernel(const float* __restrict__ queries, int* beam_ids,
       const int nb = s_mk[j];
       float d = CUDART_INF_F;
       if (nb >= 0) {
-        const float prod = warp_dot(vectors + (long long)nb * D, q, D, lane);
+        float prod = row_dot(rows + (long long)nb * D, q, D, lane);
+        if constexpr (sizeof(T) == 1) prod = __fmul_rn(prod, scales[nb]);
         d = L2 ? l2_combine(s_q2, norms[nb], prod) : -prod;
       }
       if (lane == 0) s_nd[j] = d;
@@ -205,6 +227,52 @@ beam_hop_kernel(const float* __restrict__ queries, int* beam_ids,
   }
 }
 
+template <typename T, bool L2>
+static void launch_one(const float* queries, int* beam_ids,
+                       float* beam_dists, int* beam_exp, int* seen,
+                       int* vis_ids, float* vis_dists, int* n_vis,
+                       int* n_comps, int* n_hops, const int* adj,
+                       const T* rows, const float* scales, const float* norms,
+                       const int* nav_words, const int* ret_words, int B,
+                       int l, int r, int mv, int n_cap, int W, int D, int h,
+                       cudaStream_t s) {
+  const size_t smem = (size_t)D * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(beam_hop_kernel<T, L2>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  }
+  beam_hop_kernel<T, L2><<<B, NT, smem, s>>>(
+      queries, beam_ids, beam_dists, beam_exp, seen, vis_ids, vis_dists,
+      n_vis, n_comps, n_hops, adj, rows, scales, norms, nav_words, ret_words,
+      l, r, mv, n_cap, W, D, h);
+}
+
+template <typename T>
+static int launch(const float* queries, int* beam_ids, float* beam_dists,
+                  int* beam_exp, int* seen, int* vis_ids, float* vis_dists,
+                  int* n_vis, int* n_comps, int* n_hops, const int* adj,
+                  const T* rows, const float* scales, const float* norms,
+                  const int* nav_words, const int* ret_words, int B, int l,
+                  int r, int mv, int n_cap, int W, int D, int h, int l2,
+                  void* stream) {
+  if (B == 0 || h == 0) return 0;
+  if (l > L_MAX || r > R_MAX) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (l2) {
+    launch_one<T, true>(queries, beam_ids, beam_dists, beam_exp, seen,
+                        vis_ids, vis_dists, n_vis, n_comps, n_hops, adj, rows,
+                        scales, norms, nav_words, ret_words, B, l, r, mv,
+                        n_cap, W, D, h, s);
+  } else {
+    launch_one<T, false>(queries, beam_ids, beam_dists, beam_exp, seen,
+                         vis_ids, vis_dists, n_vis, n_comps, n_hops, adj,
+                         rows, scales, norms, nav_words, ret_words, B, l, r,
+                         mv, n_cap, W, D, h, s);
+  }
+  return (int)cudaGetLastError();
+}
+
 extern "C" int beam_hop_launch(const float* queries, int* beam_ids,
                                float* beam_dists, int* beam_exp, int* seen,
                                int* vis_ids, float* vis_dists, int* n_vis,
@@ -213,30 +281,23 @@ extern "C" int beam_hop_launch(const float* queries, int* beam_ids,
                                const int* nav_words, const int* ret_words,
                                int B, int l, int r, int mv, int n_cap, int W,
                                int D, int h, int l2, void* stream) {
-  if (B == 0 || h == 0) return 0;
-  if (l > L_MAX || r > R_MAX) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)D * sizeof(float);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (l2) {
-    if (smem > 48 * 1024) {
-      cudaFuncSetAttribute(beam_hop_kernel<true>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-    }
-    beam_hop_kernel<true><<<B, NT, smem, s>>>(
-        queries, beam_ids, beam_dists, beam_exp, seen, vis_ids, vis_dists,
-        n_vis, n_comps, n_hops, adj, vectors, norms, nav_words, ret_words, l,
-        r, mv, n_cap, W, D, h);
-  } else {
-    if (smem > 48 * 1024) {
-      cudaFuncSetAttribute(beam_hop_kernel<false>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-    }
-    beam_hop_kernel<false><<<B, NT, smem, s>>>(
-        queries, beam_ids, beam_dists, beam_exp, seen, vis_ids, vis_dists,
-        n_vis, n_comps, n_hops, adj, vectors, norms, nav_words, ret_words, l,
-        r, mv, n_cap, W, D, h);
-  }
-  return (int)cudaGetLastError();
+  return launch<float>(queries, beam_ids, beam_dists, beam_exp, seen,
+                       vis_ids, vis_dists, n_vis, n_comps, n_hops, adj,
+                       vectors, nullptr, norms, nav_words, ret_words, B, l, r,
+                       mv, n_cap, W, D, h, l2, stream);
+}
+
+extern "C" int beam_hop_q_launch(const float* queries, int* beam_ids,
+                                 float* beam_dists, int* beam_exp, int* seen,
+                                 int* vis_ids, float* vis_dists, int* n_vis,
+                                 int* n_comps, int* n_hops, const int* adj,
+                                 const signed char* codes,
+                                 const float* scales, const float* qnorms,
+                                 const int* nav_words, const int* ret_words,
+                                 int B, int l, int r, int mv, int n_cap,
+                                 int W, int D, int h, int l2, void* stream) {
+  return launch<signed char>(queries, beam_ids, beam_dists, beam_exp, seen,
+                             vis_ids, vis_dists, n_vis, n_comps, n_hops, adj,
+                             codes, scales, qnorms, nav_words, ret_words, B,
+                             l, r, mv, n_cap, W, D, h, l2, stream);
 }

@@ -6,8 +6,9 @@
 // partials, then an xor butterfly), so the gather kernel and the fused hop
 // kernel produce the same bits for the same (query, row) pair.  The
 // butterfly leaves the identical sum in every lane because float addition
-// is commutative.  The combine uses explicit round-to-nearest intrinsics so
-// nvcc cannot contract it into an fma.
+// is commutative.  `warp_dot_i8` does the same for the int8 code table.
+// The combine uses explicit round-to-nearest intrinsics so nvcc cannot
+// contract it into an fma.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -27,6 +28,32 @@ __device__ __forceinline__ float warp_dot(const float* __restrict__ a,
                                           int D, int lane) {
   float acc = 0.0f;
   for (int d = lane; d < D; d += 32) acc = fmaf(a[d], b[d], acc);
+  return warp_sum(acc);
+}
+
+// <codes, q> over D int8 codes and D floats, by one full warp, accumulated
+// in f32 (the raw dot of the quantized tier; the caller applies the row's
+// scale to the result).  When D is a multiple of 4 each lane loads a char4
+// (a D = 128 row is one 128-byte transaction), else one byte per step.
+// The quantized gather kernel and the quantized fused hop kernel share it,
+// so the two engines give the same bits.
+__device__ __forceinline__ float warp_dot_i8(const signed char* __restrict__ x,
+                                             const float* __restrict__ q,
+                                             int D, int lane) {
+  float acc = 0.0f;
+  if ((D & 3) == 0) {
+    const char4* x4 = reinterpret_cast<const char4*>(x);
+    for (int c = lane; c < (D >> 2); c += 32) {
+      const char4 v = x4[c];
+      const float* qc = q + 4 * c;
+      acc = fmaf((float)v.x, qc[0], acc);
+      acc = fmaf((float)v.y, qc[1], acc);
+      acc = fmaf((float)v.z, qc[2], acc);
+      acc = fmaf((float)v.w, qc[3], acc);
+    }
+  } else {
+    for (int d = lane; d < D; d += 32) acc = fmaf((float)x[d], q[d], acc);
+  }
   return warp_sum(acc);
 }
 

@@ -1,12 +1,13 @@
 """Fused multi-hop beam super-step: ``csrc/beam_hop.cu``.
 
-Replaces the TPU kernel ``repro/kernels/beam_hop.py::beam_hop_fused`` (body
-``_kernel``, per-lane step ``_lane_hop``): H masked hops per lane in one
-launch.  Each hop pops the closest unexpanded beam entry (first minimum),
-records it in the visited list if returnable, reads its adjacency row,
-keeps the navigable not-yet-seen neighbours, scores them, sets their seen
-bits and stable-merges them into the beam, keeping the best l.  Inactive
-lanes are exact no-ops.
+Replaces the TPU kernels ``repro/kernels/beam_hop.py::beam_hop_fused`` (body
+``_kernel``, per-lane step ``_lane_hop``) and ``::beam_hop_fused_q`` (body
+``_kernel_q``, the ``scales=`` path of ``_lane_hop``): H masked hops per
+lane in one launch.  Each hop pops the closest unexpanded beam entry
+(first minimum), records it in the visited list if returnable, reads its
+adjacency row, keeps the navigable not-yet-seen neighbours, scores them,
+sets their seen bits and stable-merges them into the beam, keeping the
+best l.  Inactive lanes are exact no-ops.
 
 Bound on the H100: bytes, in the random gathers (per hop and lane one
 adjacency row and up to R rows of 4D bytes).  One block per lane keeps the
@@ -14,7 +15,10 @@ beam, the adjacency row and the new distances in shared memory across all H
 hops; the seen row (125 KB per lane at n_cap = 10^6) stays in global memory
 and only the words a hop touches are tested and set in place.  The merge
 ranks the (l + R) entries directly, which equals the reference's stable
-``lax.sort`` of the concatenation.
+``lax.sort`` of the concatenation.  The quantized twin (``beam_hop_fused_q``)
+is the same kernel over the int8 code table (D bytes a row instead of 4D):
+the raw dot accumulates in f32, the row's scale multiplies the product, and
+the l2 norm term is the cached ``qnorms``.
 
 The carry is the reference's: ``(beam_ids i32[B,l], beam_dists f32[B,l],
 beam_exp i32[B,l], seen i32[B,W], vis_ids i32[B,mv], vis_dists f32[B,mv],
@@ -29,7 +33,7 @@ import torch
 
 from . import build
 
-LAUNCHES = {"beam_hop_fused": 0}
+LAUNCHES = {"beam_hop_fused": 0, "beam_hop_fused_q": 0}
 INF = float("inf")
 
 
@@ -39,8 +43,11 @@ def _getbit(words, ids):
 
 
 def _lane_hop(metric, l, mv, n_cap, adj, vectors, norms, nav_words,
-              ret_words, queries, c):
-    """ONE masked hop of every lane: ``_lane_hop`` with a batch axis."""
+              ret_words, queries, c, scales=None):
+    """ONE masked hop of every lane: ``_lane_hop`` with a batch axis.
+    ``scales`` selects the quantized tier: ``vectors`` are then the int8
+    codes, the per-row scale multiplies the dot product and ``norms`` are
+    the cached qnorms."""
     from ..core.bitset import getbit_rows, setbits_rows
 
     bi, bd, be, seen, vi, vd, n_vis, n_comps, n_hops = c
@@ -71,8 +78,11 @@ def _lane_hop(metric, l, mv, n_cap, adj, vectors, norms, nav_words,
     fresh = (nbrs >= 0) & _getbit(nav_words, safe) & \
         ~getbit_rows(seen, safe) & active[:, None]
     masked = torch.where(fresh, nbrs, torch.full_like(nbrs, -1))
-    rows_x = vectors[masked.clamp(min=0).long()]            # (B, r, D)
+    sm = masked.clamp(min=0).long()
+    rows_x = vectors[sm].to(torch.float32)                  # (B, r, D)
     prod = torch.bmm(rows_x, queries.unsqueeze(-1)).squeeze(-1)
+    if scales is not None:
+        prod = prod * scales[sm]
     if metric == "l2":
         q2 = (queries * queries).sum(1, keepdim=True)
         x2 = torch.where(masked >= 0, norms[masked.clamp(0, n_cap - 1).long()],
@@ -96,7 +106,7 @@ def _lane_hop(metric, l, mv, n_cap, adj, vectors, norms, nav_words,
 def beam_hop_fused_plain(queries, beam_ids, beam_dists, beam_exp, seen,
                          vis_ids, vis_dists, n_vis, n_comps, n_hops, adj,
                          vectors, norms, nav_words, ret_words, *,
-                         metric: str = "l2", h: int = 4):
+                         metric: str = "l2", h: int = 4, scales=None):
     """The kernel's semantics in plain PyTorch; returns a new carry."""
     n_cap = adj.shape[0]
     l = beam_ids.shape[1]
@@ -106,32 +116,43 @@ def beam_hop_fused_plain(queries, beam_ids, beam_dists, beam_exp, seen,
          n_hops.to(torch.int32))
     for _ in range(h):
         c = _lane_hop(metric, l, mv, n_cap, adj, vectors, norms, nav_words,
-                      ret_words, queries, c)
+                      ret_words, queries, c, scales=scales)
     return c
 
 
-def beam_hop_fused_cuda(queries, beam_ids, beam_dists, beam_exp, seen,
-                        vis_ids, vis_dists, n_vis, n_comps, n_hops, adj,
-                        vectors, norms, nav_words, ret_words, *,
-                        metric: str = "l2", h: int = 4):
-    """Launch the kernel: updates the carry in place and returns it."""
+def beam_hop_fused_q_plain(queries, beam_ids, beam_dists, beam_exp, seen,
+                           vis_ids, vis_dists, n_vis, n_comps, n_hops, adj,
+                           codes, scales, qnorms, nav_words, ret_words, *,
+                           metric: str = "l2", h: int = 4):
+    """The quantized kernel's semantics in plain PyTorch; a new carry."""
+    return beam_hop_fused_plain(
+        queries, beam_ids, beam_dists, beam_exp, seen, vis_ids, vis_dists,
+        n_vis, n_comps, n_hops, adj, codes, qnorms, nav_words, ret_words,
+        metric=metric, h=h, scales=scales)
+
+
+def _launch(queries, carry, adj, rows, scales, norms, nav_words, ret_words,
+            metric, h, key):
+    """Check and launch either kernel (``scales`` None: f32 rows)."""
     queries = queries.contiguous()
-    carry = (beam_ids, beam_dists, beam_exp, seen, vis_ids, vis_dists,
-             n_vis, n_comps, n_hops)
-    build.require_cuda(queries, *carry, adj, vectors, norms, nav_words,
+    build.require_cuda(queries, *carry, adj, rows, scales, norms, nav_words,
                        ret_words)
+    (beam_ids, beam_dists, beam_exp, seen, vis_ids, vis_dists, n_vis,
+     n_comps, n_hops) = carry
     for t, what in ((beam_ids, "beam_ids"), (beam_exp, "beam_exp"),
                     (seen, "seen"), (vis_ids, "vis_ids"), (n_vis, "n_vis"),
                     (n_comps, "n_comps"), (n_hops, "n_hops"), (adj, "adj"),
                     (nav_words, "nav_words"), (ret_words, "ret_words")):
         build.require_dtype(t, torch.int32, what)
     for t, what in ((queries, "queries"), (beam_dists, "beam_dists"),
-                    (vis_dists, "vis_dists"), (vectors, "vectors"),
-                    (norms, "norms")):
+                    (vis_dists, "vis_dists"), (norms, "norms"),
+                    (scales, "scales")):
         build.require_dtype(t, torch.float32, what)
+    build.require_dtype(rows, torch.float32 if scales is None
+                        else torch.int8, "rows")
     b, l = beam_ids.shape
     n_cap, r = adj.shape
-    d = vectors.shape[1]
+    d = rows.shape[1]
     w = seen.shape[1]
     mv = vis_ids.shape[1]
     if l > 256 or r > 128 or d > 8192:
@@ -139,17 +160,47 @@ def beam_hop_fused_cuda(queries, beam_ids, beam_dists, beam_exp, seen,
                          f"dim <= 8192; got l={l} r={r} dim={d}")
     if (seen.shape != (b, w) or nav_words.shape != (w,)
             or ret_words.shape != (w,) or w * 32 < n_cap
-            or queries.shape != (b, d)):
+            or queries.shape != (b, d) or rows.shape[0] != n_cap
+            or norms.shape != (n_cap,)
+            or (scales is not None and scales.shape != (n_cap,))):
         raise ValueError("beam_hop: inconsistent carry shapes")
-    err = build.lib("beam_hop").beam_hop_launch(
-        *(build.ptr(t) for t in (queries, *carry, adj, vectors, norms,
-                                 nav_words, ret_words)),
-        b, l, r, mv, n_cap, w, d, h, int(metric == "l2"),
-        build.stream(queries),
-    )
-    build.check(err, "beam_hop_fused")
-    LAUNCHES["beam_hop_fused"] += 1
+    lib = build.lib("beam_hop")
+    if scales is None:
+        fn, tables = lib.beam_hop_launch, (rows, norms)
+    else:
+        if rows.data_ptr() % 4:
+            raise ValueError("codes must be 4-byte aligned")
+        fn, tables = lib.beam_hop_q_launch, (rows, scales, norms)
+    err = fn(*(build.ptr(t) for t in (queries, *carry, adj, *tables,
+                                      nav_words, ret_words)),
+             b, l, r, mv, n_cap, w, d, h, int(metric == "l2"),
+             build.stream(queries))
+    build.check(err, key)
+    LAUNCHES[key] += 1
     return carry
+
+
+def beam_hop_fused_cuda(queries, beam_ids, beam_dists, beam_exp, seen,
+                        vis_ids, vis_dists, n_vis, n_comps, n_hops, adj,
+                        vectors, norms, nav_words, ret_words, *,
+                        metric: str = "l2", h: int = 4):
+    """Launch the kernel: updates the carry in place and returns it."""
+    carry = (beam_ids, beam_dists, beam_exp, seen, vis_ids, vis_dists,
+             n_vis, n_comps, n_hops)
+    return _launch(queries, carry, adj, vectors, None, norms, nav_words,
+                   ret_words, metric, h, "beam_hop_fused")
+
+
+def beam_hop_fused_q_cuda(queries, beam_ids, beam_dists, beam_exp, seen,
+                          vis_ids, vis_dists, n_vis, n_comps, n_hops, adj,
+                          codes, scales, qnorms, nav_words, ret_words, *,
+                          metric: str = "l2", h: int = 4):
+    """Launch the quantized kernel: updates the carry in place and returns
+    it."""
+    carry = (beam_ids, beam_dists, beam_exp, seen, vis_ids, vis_dists,
+             n_vis, n_comps, n_hops)
+    return _launch(queries, carry, adj, codes, scales, qnorms, nav_words,
+                   ret_words, metric, h, "beam_hop_fused_q")
 
 
 def beam_hop_fused(*args, metric: str = "l2", h: int = 4):
@@ -157,3 +208,11 @@ def beam_hop_fused(*args, metric: str = "l2", h: int = 4):
     if build.on_cpu(*args):
         return beam_hop_fused_plain(*args, metric=metric, h=h)
     return beam_hop_fused_cuda(*args, metric=metric, h=h)
+
+
+def beam_hop_fused_q(*args, metric: str = "l2", h: int = 4):
+    """Plain version for CPU tensors, the quantized kernel for CUDA
+    tensors."""
+    if build.on_cpu(*args):
+        return beam_hop_fused_q_plain(*args, metric=metric, h=h)
+    return beam_hop_fused_q_cuda(*args, metric=metric, h=h)

@@ -20,7 +20,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("gather_distance", "beam_hop", "topk_score")
+SOURCES = ("gather_distance", "beam_hop", "topk_score", "quant_gather")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -34,10 +34,14 @@ SIGNATURES = {
     ],
     "beam_hop": [
         ("beam_hop_launch", [_P] * 15 + [_I] * 9 + [_P]),
+        ("beam_hop_q_launch", [_P] * 16 + [_I] * 9 + [_P]),
     ],
     "topk_score": [
         ("topk_score_launch", [_P] * 8 + [_I] * 5 + [_P]),
         ("topk_n_chunks", [_I]),
+    ],
+    "quant_gather": [
+        ("quant_gather_launch", [_P] * 6 + [_I] * 5 + [_P]),
     ],
 }
 

@@ -8,9 +8,11 @@ from __future__ import annotations
 
 from . import beam_hop as _beam_hop
 from . import gather_distance as _gather
+from . import quant_gather as _quant
 from . import ref, topk_score as _topk
 
-_COUNTERS = (_gather.LAUNCHES, _beam_hop.LAUNCHES, _topk.LAUNCHES)
+_COUNTERS = (_gather.LAUNCHES, _beam_hop.LAUNCHES, _topk.LAUNCHES,
+             _quant.LAUNCHES)
 
 
 def launch_counts() -> dict:
@@ -51,6 +53,25 @@ def beam_hop(queries, beam_ids, beam_dists, beam_exp, seen, vis_ids,
     )
 
 
+def gather_distances_batched_q(ids, queries, codes, scales, qnorms, *,
+                               metric="l2"):
+    """Fused gather + distance over the int8 code table, (B, K) ids."""
+    return _quant.gather_distance_batched_q(ids, queries, codes, scales,
+                                            qnorms, metric=metric)
+
+
+def beam_hop_q(queries, beam_ids, beam_dists, beam_exp, seen, vis_ids,
+               vis_dists, n_vis, n_comps, n_hops, adj, codes, scales, qnorms,
+               nav_words, ret_words, *, metric="l2", h=4):
+    """The fused super-step over the int8 code table (the CUDA launch
+    updates the carry in place); returns the carry tuple."""
+    return _beam_hop.beam_hop_fused_q(
+        queries, beam_ids, beam_dists, beam_exp, seen, vis_ids, vis_dists,
+        n_vis, n_comps, n_hops, adj, codes, scales, qnorms, nav_words,
+        ret_words, metric=metric, h=h,
+    )
+
+
 def topk_search(queries, vectors, norms=None, *, k, metric="l2", bias=None):
     """Exact top-k scoring; ``bias`` +inf excludes a row.  Non-finite
     results are (+inf, -1)."""
@@ -61,6 +82,7 @@ def topk_search(queries, vectors, norms=None, *, k, metric="l2", bias=None):
 
 
 __all__ = [
-    "beam_hop", "gather_distances", "gather_distances_batched",
+    "beam_hop", "beam_hop_q", "gather_distances", "gather_distances_batched",
+    "gather_distances_batched_q",
     "launch_counts", "ref", "reset_launch_counts", "topk_search",
 ]

@@ -41,6 +41,24 @@ def gather_distance_batched_ref(ids, queries, vectors, *,
     return torch.where(ids >= 0, d, torch.full_like(d, INF))
 
 
+def quant_gather_distance_batched_ref(ids, queries, codes, scales, qnorms,
+                                      *, metric: str = "l2"):
+    """f32[B, K] quantized-tier distances: the raw int8 dot accumulated in
+    f32, the per-row scale applied to the product, the cached qnorms as the
+    l2 norm term; +inf where ids < 0."""
+    queries = queries.to(torch.float32)
+    safe = ids.clamp(0, codes.shape[0] - 1).long()
+    rows = codes[safe].to(torch.float32)                   # (B, K, D)
+    raw = torch.bmm(rows, queries.unsqueeze(-1)).squeeze(-1)
+    prod = raw * scales[safe]
+    if metric == "l2":
+        d = (queries * queries).sum(1, keepdim=True) + qnorms[safe] \
+            - 2.0 * prod
+    else:
+        d = -prod
+    return torch.where(ids >= 0, d, torch.full_like(d, INF))
+
+
 def topk_score_ref(queries, vectors, norms, bias=None, *, k: int,
                    metric: str = "l2"):
     """(dists f32[B, k], ids i32[B, k]) ascending by distance, ties to the

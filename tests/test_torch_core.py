@@ -43,9 +43,13 @@ def test_initial_index_state_matches_leaf_for_leaf():
 
 
 def test_quantized_config_raises():
-    _, tcfg = cfg_pair(**small_kw(), quantized=True)
-    with pytest.raises(NotImplementedError):
-        init_index_state(tcfg, 10, device="cpu")
+    """A quantized config builds the reference's state leaf for leaf, and
+    raises where the reference does (an empty id range)."""
+    jcfg, tcfg = cfg_pair(**small_kw(), quantized=True)
+    assert_index_equal(j_init(jcfg, 333),
+                       init_index_state(tcfg, 333, device="cpu"))
+    with pytest.raises(ValueError):
+        init_index_state(tcfg, 0, device="cpu")
 
 
 @pytest.mark.parametrize("n_bits", [1, 31, 32, 33, 250, 700])

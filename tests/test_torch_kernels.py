@@ -8,6 +8,9 @@ to the reference's bar.  The matrix covers both metrics, INVALID ids, D not
 a multiple of 128, duplicate neighbour ids, a tombstoned entry point,
 masked lanes, H not dividing the hop count and n_cap not a multiple of 32.
 
+The int8 tier's kernels (``quant_gather``, ``beam_hop_fused_q``) are held
+against the reference in ``tests/test_torch_quant.py``.
+
 The ``requires_cuda`` tests run the CUDA kernels against their plain
 versions on the card (``python -m pytest --noconftest -m requires_cuda
 tests/test_torch_kernels.py``: the card's machine has no JAX, which
@@ -19,11 +22,13 @@ import pytest
 import torch
 
 from torch_parity import (assert_field, cuda_device,  # noqa: F401
-                          grid_data, n, t)
+                          grid_data, n, qgrid_data, t)
 
 from repro_torch.core import bitset as tbitset
+from repro_torch.core.quant import quantize_rows
 from repro_torch.kernels import beam_hop as tbh
 from repro_torch.kernels import gather_distance as tgd
+from repro_torch.kernels import quant_gather as tqg
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import topk_score as ttk
 
@@ -33,6 +38,8 @@ N_CAP = 250  # not a multiple of 32
 def _data(kind, nrow, dim, seed, metric="l2"):
     if kind == "grid":
         return grid_data(nrow, dim, seed)
+    if kind == "qgrid":
+        return qgrid_data(nrow, dim, seed)
     from repro_torch.core.runbook import make_dataset
 
     return make_dataset(nrow, dim, metric, n_queries=1, seed=seed)[0]
@@ -104,6 +111,14 @@ def test_gather_distance_plain(kind, metric, with_norms):
     _close(pal, out, exact, "plain vs pallas")
     _close(jr, tref.gather_distance_ref(t(ids), t(q), t(vec), metric=metric),
            exact, "ref vs ref")
+
+
+def quant_tables(vec):
+    """(codes, scale, qnorms) of a numpy table, through the port's
+    ``quantize_rows``."""
+    codes, scale = quantize_rows(torch.from_numpy(vec))
+    deq = codes.float() * scale[:, None]
+    return n(codes), n(scale), n((deq * deq).sum(1))
 
 
 def _beam_inputs(kind, metric, b=6, l=16, r=8, dim=20, seed=0,
@@ -279,6 +294,41 @@ def test_cuda_beam_hop(cuda_device, kind, metric, h):
                                     metric=metric, h=h)
         for i, (a, b) in enumerate(zip(p, k)):
             _close(a, b, kind == "grid", f"step {step} field {i}")
+        c = p
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["qgrid", "gauss"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("dim", [128, 130])  # char4 and byte loads
+def test_cuda_quant_gather(cuda_device, kind, metric, dim):
+    rng = np.random.default_rng(dim)
+    vec = _data(kind, N_CAP, dim, 1, metric)
+    q = _data(kind, 7, dim, 2, metric)
+    ids = _ids(rng, 7, 64, N_CAP)
+    args = _to(cuda_device, ids, q, *quant_tables(vec))
+    a = tqg.gather_distance_batched_q_cuda(*args, metric=metric)
+    p = tqg.gather_distance_batched_q_plain(*args, metric=metric)
+    _close(p, a, kind == "qgrid", "quantized kernel vs plain")
+    assert np.isinf(n(a)[ids < 0]).all()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["qgrid", "gauss"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("h", [1, 3, 4])
+def test_cuda_beam_hop_q(cuda_device, kind, metric, h):
+    q, carry, static = _beam_inputs(kind, metric, b=9, l=32, r=16, dim=40)
+    adj, vec, _, nav, ret = static
+    qd = _to(cuda_device, q)[0]
+    sd = _to(cuda_device, adj, *quant_tables(vec), nav, ret)
+    c = _to(cuda_device, *carry)
+    for step in range(10):
+        p = tbh.beam_hop_fused_q_plain(qd, *c, *sd, metric=metric, h=h)
+        k = tbh.beam_hop_fused_q_cuda(qd, *(x.clone() for x in c), *sd,
+                                      metric=metric, h=h)
+        for i, (a, b) in enumerate(zip(p, k)):
+            _close(a, b, kind == "qgrid", f"step {step} field {i}")
         c = p
 
 

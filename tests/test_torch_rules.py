@@ -1,6 +1,7 @@
 """Rules of the port: it imports neither JAX nor the JAX package, it imports
 without JAX installed, ``auto`` resolves by the state's device, the ``cuda``
-engine refuses CPU tensors, and the unported int8 tier refuses loudly."""
+engine refuses CPU tensors (the int8 tier's kernels too), and the
+quantized state has the reference's leaves."""
 import ast
 import subprocess
 import sys
@@ -13,7 +14,8 @@ import torch
 from repro_torch.core import backend as tbackend
 from repro_torch.core.search_batched import resolved_hop_fused
 from repro_torch.core.types import ANNConfig, init_state
-from repro_torch.kernels import beam_hop, gather_distance, topk_score
+from repro_torch.kernels import (beam_hop, gather_distance, quant_gather,
+                                 topk_score)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -105,5 +107,48 @@ def test_wrappers_take_plain_version_on_cpu_only():
 
 
 def test_quantized_tier_refuses():
-    with pytest.raises(NotImplementedError):
-        init_state(ANNConfig(dim=8, n_cap=40, quantized=True), "cpu")
+    """The int8 tier's CUDA launchers refuse CPU tensors and a code table
+    that is not int8; nothing falls back to the plain versions."""
+    cfg = ANNConfig(dim=8, n_cap=40, r=4, quantized=True, backend="cuda")
+    state = init_state(cfg, "cpu")
+    quant = state.quant
+    eng = tbackend.resolve_backend(cfg, "cpu")
+    ids = torch.zeros((2, 3), dtype=torch.int32)
+    q = torch.zeros((2, 8))
+    with pytest.raises(ValueError):
+        eng.dists_to_ids_batched_q(state, cfg, q, ids)
+    with pytest.raises(ValueError):
+        quant_gather.gather_distance_batched_q_cuda(
+            ids, q, quant.codes, quant.scale, quant.qnorms)
+    carry = (ids, q[:, :3].contiguous(), ids, torch.zeros((2, 2),
+             dtype=torch.int32), ids, q[:, :3].contiguous(),
+             ids[:, 0].contiguous(), ids[:, 0].contiguous(),
+             ids[:, 0].contiguous())
+    with pytest.raises(ValueError):
+        beam_hop.beam_hop_fused_q_cuda(q, *carry, state.adj, quant.codes,
+                                       quant.scale, quant.qnorms, ids[0, :2],
+                                       ids[0, :2])
+    before = dict(quant_gather.LAUNCHES)
+    out = quant_gather.gather_distance_batched_q(ids, q, quant.codes,
+                                                 quant.scale, quant.qnorms)
+    assert out.shape == (2, 3) and quant_gather.LAUNCHES == before
+    with pytest.raises(ValueError):
+        quant_gather.gather_distance_batched_q(
+            ids, q, quant.codes.to("meta"), quant.scale, quant.qnorms)
+
+
+def test_quantized_init_state_has_reference_leaves():
+    """The quantized ``init_state`` builds the reference's ``quant`` leaf:
+    the same shapes, dtypes and initial values."""
+    from repro.core.types import ANNConfig as JCfg
+    from repro.core.types import init_state as j_init_state
+
+    kw = dict(dim=20, n_cap=70, r=6, quantized=True)
+    jq = j_init_state(JCfg(**kw)).quant
+    tq = init_state(ANNConfig(**kw), "cpu").quant
+    assert tq._fields == jq._fields
+    for f in tq._fields:
+        a, b = np.asarray(getattr(jq, f)), getattr(tq, f).numpy()
+        assert a.shape == b.shape and a.dtype == b.dtype, f
+        np.testing.assert_array_equal(a, b)
+    assert init_state(ANNConfig(dim=20, n_cap=70), "cpu").quant is None

@@ -5,8 +5,9 @@ numpy inputs go through the JAX reference (``repro``) and the PyTorch port
 Grid-valued data (entries k/16, |k| <= 64) makes every dot product, norm
 and ``q2 + x2 - 2*prod`` exact in float32 in any summation order, so the two
 packages must agree bitwise there while exact ties (every tie rule) are
-common.  Gaussian data (``make_dataset``) is compared with the reference's
-own kernel bar: ids and counters exactly, distances to rtol 2e-5, atol 1e-5.
+common; ``qgrid_data`` does the same for the int8 tier.  Gaussian data
+(``make_dataset``) is compared with the reference's own kernel bar: ids and
+counters exactly, distances to rtol 2e-5, atol 1e-5.
 """
 from __future__ import annotations
 
@@ -22,6 +23,17 @@ INDEX_LEAVES = ("ext2slot", "slot2ext", "n_inserts", "n_deletes",
 def grid_data(n: int, dim: int, seed: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     return (rng.integers(-64, 65, size=(n, dim)) / 16).astype(np.float32)
+
+
+def qgrid_data(n: int, dim: int, seed: int) -> np.ndarray:
+    """Grid data with one entry of each row at +-127/16: every row's int8
+    scale is then exactly 2^-4, its codes are 16 * x, and the dequantized
+    rows, their qnorms and every quantized distance are exact in float32."""
+    rng = np.random.default_rng(seed)
+    x = grid_data(n, dim, seed)
+    sign = np.where(rng.random(n) < 0.5, -1.0, 1.0)
+    x[np.arange(n), rng.integers(0, dim, size=n)] = sign * 127 / 16
+    return x.astype(np.float32)
 
 
 def cfg_pair(**kw):
@@ -87,7 +99,13 @@ def assert_index_equal(jstate, tstate, exact=True, where=""):
     b = convert.index_state_to_numpy(tstate)
     for f, v in a["graph"].items():
         if v is None:
-            assert b["graph"][f] is None
+            assert b["graph"][f] is None, f"{where} graph.{f}"
+            continue
+        if f == "quant":
+            assert b["graph"][f] is not None, f"{where} graph.quant"
+            for qf, qv in v._asdict().items():
+                assert_field(qv, b["graph"][f][qf],
+                             f"{where} graph.quant.{qf}", exact)
             continue
         assert_field(v, b["graph"][f], f"{where} graph.{f}", exact)
     for f in INDEX_LEAVES:
