@@ -10,9 +10,11 @@ Phases, any failure exits non-zero:
      the int8 twins over ``quantize_rows`` of the same tables) against
      their plain PyTorch versions, bitwise on grid-valued data (entries
      k/16, where every sum is exact in float32) and to rtol 1e-5 on
-     Gaussian data; CUDA-event times of the kernel, the plain version, a
-     one-call PyTorch yardstick where one exists, and the bound from the
-     bytes / flops the inputs need;
+     Gaussian data; CUDA-event times of the wrapper call, the plain
+     version, a one-call PyTorch yardstick where one exists, the kernel's
+     device-only time from a ``torch.profiler`` trace, and the bound from
+     the bytes / flops the inputs need; where the single-query gather's
+     host time goes, step by step; no spills in the redesigned kernels;
   3. the f32 main path end to end: ``ANNConfig(dim=128, n_cap=1_000_000)``
      on the card, a serial bootstrap, batched insert windows, Recall@10,
      in-place deletes with the Alg-6 sweep, reinserts, Recall@10 again, a
@@ -48,7 +50,16 @@ sys.path.insert(0, str(ROOT / "src"))
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, SXM data sheet
 H100_FP32_FLOPS = 67e12      # fp32 outside the tensor cores
+# each TPU kernel's pl.pallas_call line, and the line of the def around it
 TPU_SITES = {
+    "gather_distance_batched": "src/repro/kernels/gather_distance.py:186",
+    "gather_distance": "src/repro/kernels/gather_distance.py:104",
+    "beam_hop_fused": "src/repro/kernels/beam_hop.py:315",
+    "topk_score": "src/repro/kernels/topk_score.py:110",
+    "gather_distance_batched_q": "src/repro/kernels/quant_gather.py:113",
+    "beam_hop_fused_q": "src/repro/kernels/beam_hop.py:467",
+}
+TPU_DEFS = {
     "gather_distance_batched": "src/repro/kernels/gather_distance.py:144",
     "gather_distance": "src/repro/kernels/gather_distance.py:66",
     "beam_hop_fused": "src/repro/kernels/beam_hop.py:245",
@@ -64,6 +75,17 @@ SOURCES = {
     "gather_distance_batched_q": "src/repro_torch/csrc/quant_gather.cu",
     "beam_hop_fused_q": "src/repro_torch/csrc/beam_hop.cu",
 }
+# the CUDA kernels (by name) each wrapper launches, for the device times
+DEVICE_KERNELS = {
+    "gather_distance_batched": ("gather_distance_kernel",),
+    "gather_distance": ("gather_one_kernel",),
+    "beam_hop_fused": ("beam_hop_kernel",),
+    "topk_score": ("topk_partial_kernel", "topk_merge_kernel"),
+    "gather_distance_batched_q": ("quant_gather_kernel",),
+    "beam_hop_fused_q": ("beam_hop_kernel",),
+}
+# kernels redesigned for Hopper whose ptxas report must show no spills
+NO_SPILL = ("topk_partial_kernel", "gather_one_kernel")
 # the kernels each path must launch
 F32_PATH = ("gather_distance_batched", "gather_distance", "beam_hop_fused",
             "topk_score")
@@ -84,7 +106,7 @@ def log(*a):
     print(*a, flush=True)
 
 
-def bound(bytes_, flops):
+def bound_ms(bytes_, flops):
     t_b = bytes_ / H100_BYTES_PER_S * 1e3
     t_f = flops / H100_FP32_FLOPS * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
@@ -108,6 +130,86 @@ def cuda_ms(fn, reps, warmup=2, setup=None):
         torch.cuda.synchronize()
         total += e0.elapsed_time(e1)
     return total / reps
+
+
+def device_ms(fn, reps, names, setup=None):
+    """Mean device-only ms per ``fn(x)`` call of the CUDA kernels whose names
+    contain one of ``names``, from a ``torch.profiler`` trace of ``reps``
+    calls (copies made by ``setup`` are not counted)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(setup() if setup else None)
+    torch.cuda.synchronize()
+    xs = [setup() if setup else None for _ in range(reps)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for x in xs:
+            fn(x)
+        torch.cuda.synchronize()
+    us = 0.0
+    for ev in prof.key_averages():
+        if any(nm in ev.key for nm in names):
+            us += getattr(ev, "self_device_time_total", None) or \
+                getattr(ev, "self_cuda_time_total", 0.0)
+    check(us > 0, f"the profiler saw no device time for {names}")
+    return us / reps / 1e3
+
+
+def gather_host_split(ids, q, vec, norms, reps=2000):
+    """Where one call of the single-query gather spends its host time: mean
+    us of each step of the public ``gather_distance_cuda`` and of the
+    bound launcher's call, each step repeated ``reps`` times on its own."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import gather_distance as gd
+
+    lib = build.lib("gather_distance")
+    i2 = ids.reshape(1, -1).contiguous()
+    q2 = q.reshape(1, -1).contiguous()
+    out = torch.empty((1, ids.shape[0]), dtype=torch.float32, device="cuda")
+    bound = gd.BoundGather(q, vec, norms)
+
+    def checks():
+        for t, what in ((q2, "queries"), (vec, "vectors"), (norms, "norms")):
+            build.require_dtype(t, torch.float32, what)
+        build.require_dtype(i2, torch.int32, "ids")
+        b, k = i2.shape
+        return q2.shape == (b, vec.shape[1]) and norms.shape == vec.shape[:1]
+
+    args = (i2.data_ptr(), q2.data_ptr(), vec.data_ptr(), norms.data_ptr(),
+            out.data_ptr(), 1, i2.shape[1], vec.shape[0], vec.shape[1], 1,
+            build.stream(i2))
+
+    steps = {
+        "reshape_contiguous": lambda: (ids.reshape(1, -1).contiguous(),
+                                       q.reshape(1, -1).contiguous()),
+        "require_cuda": lambda: build.require_cuda(i2, q2, vec, norms),
+        "dtype_shape_checks": checks,
+        "torch_empty": lambda: torch.empty((1, ids.shape[0]),
+                                           dtype=torch.float32,
+                                           device=ids.device),
+        "build_lib": lambda: build.lib("gather_distance"),
+        "build_stream": lambda: build.stream(i2),
+        "data_ptrs": lambda: [build.ptr(t) for t in (i2, q2, vec, norms,
+                                                     out)],
+        "ctypes_launch": lambda: lib.gather_one_launch(*args),
+        "index_0": lambda: out[0],
+        "public_call": lambda: gd.gather_distance_cuda(ids, q, vec, norms),
+        "bound_call": lambda: bound(ids),
+    }
+    res = {}
+    for name, fn in steps.items():
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(reps):
+            fn()
+        res[name] = (time.perf_counter_ns() - t0) / reps / 1e3
+        torch.cuda.synchronize()
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -186,13 +288,17 @@ def hop_parity(name, plain, kern, qb, static, starts, d0, grid, n_cap, l,
         dhop = int((pc[8] - c0[8]).sum())
         ms = cuda_ms(lambda c: kern(qb, *c, *static, h=h), 10,
                      setup=lambda: tuple(t.clone() for t in c0))
+        dms = device_ms(lambda c: kern(qb, *c, *static, h=h), 10,
+                        DEVICE_KERNELS[name],
+                        setup=lambda: tuple(t.clone() for t in c0))
         pms = cuda_ms(lambda c: plain(qb, *c, *static, h=h), 3,
                       setup=lambda: c0)
         carry_bytes = b * (l * 12 * 2 + mv * 8 + 24 + d * 4)
         by = dcomp * row_bytes + dhop * (4 * r + 8 * r + 8) + carry_bytes
-        bms, bby = bound(by, dcomp * 2 * d)
-        out.update(ms=ms, plain_ms=pms, library_ms=None, bound_ms=bms,
-                   bound_by=bby, rows_gathered=dcomp, hops=dhop)
+        bms, bby = bound_ms(by, dcomp * 2 * d)
+        out.update(ms=ms, device_ms=dms, plain_ms=pms, library_ms=None,
+                   bound_ms=bms, bound_by=bby, rows_gathered=dcomp,
+                   hops=dhop)
     return out
 
 
@@ -240,6 +346,11 @@ def kernel_phase(seed, n_cap=1_000_000, d=128, r=64, l=128, b=512, h=4,
             return torch.bmm(store.codes[i2].float(), q2).squeeze(-1) \
                 * store.scale[i2]
 
+        # kernel 2 as the serial search calls it: bound once per search
+        bound = {nm: gd.BoundGather(qb[0], vec, nrm)
+                 for nm, nrm in (("gather_distance", norms),
+                                 ("gather_distance[no norms]", None))}
+
         # (name, args, plain, kernel, bytes per gathered row, yardstick)
         for name, args, plain, kern, row_bytes, lib in (
             ("gather_distance_batched", (ids, qb, vec, norms),
@@ -247,11 +358,13 @@ def kernel_phase(seed, n_cap=1_000_000, d=128, r=64, l=128, b=512, h=4,
              gd.gather_distance_batched_cuda, 4 * d + 8,
              ("torch.bmm(vectors[ids], q)", f32_lib)),
             ("gather_distance", (ids[0], qb[0], vec, norms),
-             gd.gather_distance_plain, gd.gather_distance_cuda, 4 * d + 8,
+             gd.gather_distance_plain,
+             lambda i, *_, metric: bound["gather_distance"](i), 4 * d + 8,
              ("torch.bmm(vectors[ids], q)", f32_lib)),
             ("gather_distance[no norms]", (ids[0], qb[0], vec, None),
-             gd.gather_distance_plain, gd.gather_distance_cuda, 4 * d,
-             None),
+             gd.gather_distance_plain,
+             lambda i, *_, metric: bound["gather_distance[no norms]"](i),
+             4 * d, None),
             ("gather_distance_batched_q", (ids, qb, *qtab),
              qg.gather_distance_batched_q_plain,
              qg.gather_distance_batched_q_cuda, d + 8,
@@ -269,21 +382,35 @@ def kernel_phase(seed, n_cap=1_000_000, d=128, r=64, l=128, b=512, h=4,
                 check(torch.allclose(a[fin], p[fin], rtol=1e-5, atol=1e-4),
                       f"{name}: gaussian max err {err}")
             res[name] = {"max_abs_err": err}
+            if name in bound:
+                # the single-query kernel, bound or through the public
+                # wrapper, gives the batched kernel's bits for the pair
+                row = gd.gather_distance_batched_cuda(
+                    ids[:1], qb[:1], vec, args[3])[0]
+                pub = gd.gather_distance_cuda(*args)
+                check(torch.equal(a, row) and torch.equal(pub, row),
+                      f"{name}: not bitwise equal to kernel 1's row")
             if not grid and lib is not None:
                 nvalid = int((args[0] >= 0).sum())
                 nq = args[1].numel() // d
                 # gathered rows with their per-row terms, ids, outputs,
                 # queries
                 by = nvalid * row_bytes + args[0].numel() * 8 + nq * d * 4
-                bms, bby = bound(by, nvalid * 2 * d)
+                bms, bby = bound_ms(by, nvalid * 2 * d)
                 ms = cuda_ms(lambda _: kern(*args, metric="l2"), 50)
+                dms = device_ms(lambda _: kern(*args, metric="l2"), 50,
+                                DEVICE_KERNELS[name])
                 pms = cuda_ms(lambda _: plain(*args, metric="l2"), 20)
                 i2 = args[0].reshape(-1, r).clamp(min=0).long()
                 q2 = args[1].reshape(-1, d, 1)
                 lms = cuda_ms(lambda _: lib[1](i2, q2), 20)
-                res[name].update(ms=ms, plain_ms=pms, library_ms=lms,
-                                 bound_ms=bms, bound_by=bby,
+                res[name].update(ms=ms, device_ms=dms, plain_ms=pms,
+                                 library_ms=lms, bound_ms=bms, bound_by=bby,
                                  library_call=lib[0])
+                if name == "gather_distance":
+                    res[name]["public_ms"] = cuda_ms(
+                        lambda _: gd.gather_distance_cuda(*args), 50)
+                    res[name]["host_split_us"] = gather_host_split(*args)
 
         # ---- kernels 3 and 6: fused beam super-step, f32 and int8 ---------
         adj = torch.randint(0, n_cap, (n_cap, r), generator=gen,
@@ -331,15 +458,19 @@ def kernel_phase(seed, n_cap=1_000_000, d=128, r=64, l=128, b=512, h=4,
         if not grid:
             ms = cuda_ms(lambda _: tk.topk_score_cuda(qt, vec, norms, bias,
                                                       k=k), 5)
+            dms = device_ms(lambda _: tk.topk_score_cuda(qt, vec, norms,
+                                                         bias, k=k), 5,
+                            DEVICE_KERNELS["topk_score"])
             pms = cuda_ms(lambda _: tk.topk_score_plain(qt, vec, norms, bias,
                                                         k=k), 2)
             lms = cuda_ms(lambda _: torch.topk(torch.addmm(
                 norms + bias, qt, vec.T, alpha=-2.0), k, largest=False), 3)
             by = n_cap * (d * 4 + 8) + q_topk * (d * 4 + k * 8)
-            bms, bby = bound(by, 2.0 * n_cap * q_topk * d)
+            bms, bby = bound_ms(by, 2.0 * n_cap * q_topk * d)
             res["topk_score"].update(
-                ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
-                bound_by=bby, library_call="torch.topk(torch.addmm(...))")
+                ms=ms, device_ms=dms, plain_ms=pms, library_ms=lms,
+                bound_ms=bms, bound_by=bby,
+                library_call="torch.topk(torch.addmm(...))")
         del vec, adj, queries, store, qtab
         torch.cuda.empty_cache()
         rows[data] = res
@@ -735,6 +866,13 @@ def main(argv=None):
     record["build_per_source_s"] = dict(build.BUILD_SECONDS)
     log(f"build: {record['build_s']:.1f} s {build.BUILD_SECONDS}")
     log(build.ptxas_report())
+    spills = build.ptxas_spills()
+    record["ptxas_spill_bytes"] = spills
+    for nm in NO_SPILL:
+        fns = [f for f in spills if nm in f]
+        check(fns and not any(spills[f] for f in fns),
+              f"ptxas reports spills (or no entry) for {nm}: "
+              f"{ {f: spills[f] for f in fns} }")
 
     t0 = time.perf_counter()
     record["kernels"] = kernel_phase(args.seed)
@@ -766,13 +904,13 @@ def main(argv=None):
         path = "main" if name in F32_PATH else "quant"
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": TPU_SITES[name],
+            "replaces": TPU_SITES[name], "tpu_def": TPU_DEFS[name],
             "launches": record[path]["launches"].get(name, 0),
             "launches_by_path": {p: record[p]["launches"].get(name, 0)
                                  for p in ("main", "quant")},
             "max_abs_err": g.get("max_abs_err"),
             "grid_bitwise": name in grid,
-            "ms": g.get("ms"), "kernel_ms": g.get("ms"),
+            "ms": g.get("ms"), "device_ms": g.get("device_ms"),
             "plain_ms": g.get("plain_ms"), "bound_ms": g.get("bound_ms"),
             "bound_by": g.get("bound_by"), "library_ms": g.get("library_ms"),
         })

@@ -8,7 +8,8 @@ slots", and goes through a ``DistanceBackend``.  Three engines:
                 of the reference's ``jnp`` engine;
   * ``ref``   — the plain kernel oracles (``kernels/ref.py``);
   * ``cuda``  — the hand-written Hopper kernels: ``gather_distance`` for the
-                beam loop, ``beam_hop_fused`` for the fused super-step,
+                serial beam loop (bound once per search),
+                ``beam_hop_fused`` for the fused super-step,
                 ``topk_score`` for the exact scan, and their int8 twins
                 ``gather_distance_batched_q`` / ``beam_hop_fused_q`` for the
                 quantized tier.  It raises on tensors that are not on a
@@ -47,6 +48,11 @@ class DistanceBackend:
         """f32[M] distances from ``q`` to slots ``ids``; inf where
         INVALID."""
         raise NotImplementedError
+
+    def bind_dists_to_ids(self, state: GraphState, cfg: ANNConfig, q):
+        """``dists_to_ids`` with ``state`` and ``q`` fixed, for the hops of
+        one serial search: a callable ``ids -> f32[M]``."""
+        return lambda ids: self.dists_to_ids(state, cfg, q, ids)
 
     def dists_to_ids_batched(self, state: GraphState, cfg: ANNConfig,
                              queries, ids):
@@ -241,6 +247,14 @@ class CudaBackend(TorchBackend):
 
         return gather_distance_cuda(ids.to(torch.int32), q, state.vectors,
                                     state.norms, metric=cfg.metric)
+
+    def bind_dists_to_ids(self, state, cfg, q):
+        """The single-query kernel's launcher, checked once and bound to the
+        table, norms, query and stream; each hop's ids are i32[M] on the
+        card (the search's adjacency rows)."""
+        from ..kernels.gather_distance import BoundGather
+
+        return BoundGather(q, state.vectors, state.norms, metric=cfg.metric)
 
     def dists_to_ids_batched(self, state, cfg, queries, ids):
         from ..kernels.gather_distance import gather_distance_batched_cuda

@@ -62,13 +62,17 @@ def greedy_search(state: GraphState, cfg: ANNConfig, q: torch.Tensor, *,
     if max_visits is None:
         max_visits = cfg.max_visits(l)
     dev = state.vectors.device
-    dist_fn = distance_fn or resolve_backend(cfg, dev).dists_to_ids
+    if distance_fn is None:
+        dist = resolve_backend(cfg, dev).bind_dists_to_ids(state, cfg, q)
+    else:
+        def dist(ids):
+            return distance_fn(state, cfg, q, ids)
     nav = navigable(state)
     returnable = state.active
     n = cfg.n_cap
 
     start = state.start.reshape(1)
-    d0 = dist_fn(state, cfg, q, start)[0]
+    d0 = dist(start)[0]
     beam_ids = torch.full((l,), INVALID, dtype=torch.int32, device=dev)
     beam_ids[0] = start[0]
     beam_dists = torch.full((l,), BIG, dtype=torch.float32, device=dev)
@@ -107,7 +111,7 @@ def greedy_search(state: GraphState, cfg: ANNConfig, q: torch.Tensor, *,
         safe = clip_ids(nbrs, n)
         fresh = (nbrs >= 0) & nav[safe] & ~seen[safe]
         masked = torch.where(fresh, nbrs, torch.full_like(nbrs, INVALID))
-        nd = dist_fn(state, cfg, q, masked)
+        nd = dist(masked)
         n_comps = n_comps + fresh.sum().to(torch.int32)
         seen[safe[fresh]] = True
         # --- stable sort-merge, keep top-l -------------------------------

@@ -31,14 +31,15 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "gather_distance": [
         ("gather_distance_launch", [_P] * 5 + [_I] * 5 + [_P]),
+        ("gather_one_launch", [_P] * 5 + [_I] * 5 + [_P]),
     ],
     "beam_hop": [
         ("beam_hop_launch", [_P] * 15 + [_I] * 9 + [_P]),
         ("beam_hop_q_launch", [_P] * 16 + [_I] * 9 + [_P]),
     ],
     "topk_score": [
-        ("topk_score_launch", [_P] * 8 + [_I] * 5 + [_P]),
-        ("topk_n_chunks", [_I]),
+        ("topk_score_launch", [_P] * 9 + [_I] * 5 + [_P]),
+        ("topk_n_chunks", [_I] * 3),
     ],
     "quant_gather": [
         ("quant_gather_launch", [_P] * 6 + [_I] * 5 + [_P]),
@@ -117,6 +118,31 @@ def build_all() -> dict:
         return _LIBS
 
 
+def build_variant(name: str, defines) -> ctypes.CDLL:
+    """A diagnostic build of one source with extra ``-D`` macros, beside the
+    regular libraries (nothing on the port's path loads it).  Raises on a
+    failed build."""
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    so = out / f"lib{name}-{'-'.join(d.lower() for d in defines)}.so"
+    if not so.exists():
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-I",
+             str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {so.name}:\n"
+                               f"{(proc.stdout + proc.stderr)[-4000:]}")
+        os.replace(tmp, so)
+    out_lib = ctypes.CDLL(str(so))
+    for fn, argtypes in SIGNATURES[name]:
+        f = getattr(out_lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    return out_lib
+
+
 def lib(name: str):
     """The loaded library for one source, building all of them on first
     use."""
@@ -173,12 +199,29 @@ def stream(t) -> int:
 
 
 def ptxas_report() -> str:
-    """The ``-Xptxas -v`` lines of the last build (registers, spills)."""
+    """The ``-Xptxas -v`` lines of the last build (each function, its
+    registers and spills)."""
     out = build_dir()
     lines = []
     for name in SOURCES:
         p = out / f"{name}.log"
         if p.exists():
             lines += [ln for ln in p.read_text().splitlines()
-                      if "registers" in ln or "spill" in ln]
+                      if "registers" in ln or "spill" in ln
+                      or "Function properties" in ln]
     return "\n".join(lines)
+
+
+def ptxas_spills() -> dict:
+    """``{mangled function name: spill bytes (stores + loads)}`` from the
+    last build's ``-Xptxas -v`` report."""
+    spills, fn = {}, None
+    for ln in ptxas_report().splitlines():
+        if "Function properties for" in ln:
+            fn = ln.split("Function properties for")[1].strip()
+        elif "spill stores" in ln and fn is not None:
+            nums = [int(w) for w in ln.replace(",", " ").split()
+                    if w.isdigit()]
+            spills[fn] = nums[1] + nums[2]   # stack, stores, loads
+            fn = None
+    return spills

@@ -9,10 +9,14 @@ the lower row id; entries past the finite ones are ``(+inf, -1)``.
 Bound on the H100: operations, ``2*N*B*D`` fp32 flops (at N = 10^6,
 B = 1,024, D = 128 about 3.9 ms at 67 TFLOP/s).  The TPU kernel carried a
 running (k, B) top-k across a sequential grid; Hopper blocks carry nothing,
-so pass 1 scores (row chunk x 16-query group) blocks, each thread one row
-against 16 queries in registers, with a per-query running top-k in shared
-memory, and pass 2 merges the chunks' lists.  The ragged tail is masked
-in-kernel rather than padded.  k is at most 64.
+so pass 1 scores (128-query tile x row chunk) blocks, each thread an 8 x 8
+register tile fed from a cp.async ring of 16-deep slices in shared memory,
+keeps a per-query running top-k in shared memory that only scores below its
+k-th entry reach, and pass 2 merges the chunks' lists.  The query tiles of
+one chunk are adjacent in launch order, so L2 serves the table to all but
+the first; the chunk length is the one that fills the card in whole waves.
+The wrapper hands the kernel a transposed, zero-padded copy of the queries
+(16-byte staging).  The ragged tail is masked in-kernel.  k is at most 64.
 """
 from __future__ import annotations
 
@@ -68,8 +72,13 @@ def topk_score_cuda(queries, vectors, norms, bias=None, *, k: int,
                     (norms, "norms"), (bias, "bias")):
         build.require_dtype(t, torch.float32, what)
     lib = build.lib("topk_score")
-    n_chunks = lib.topk_n_chunks(n)
+    n_chunks = lib.topk_n_chunks(b, n, k)
     dev = queries.device
+    # the queries transposed and zero-padded to whole 128-query tiles, so
+    # the kernel stages them with 16-byte copies
+    qt = torch.zeros((d, -(-b // 128) * 128), dtype=torch.float32,
+                     device=dev)
+    qt[:, :b] = queries.T
     part_v = torch.empty((max(n_chunks, 1), b, k), dtype=torch.float32,
                          device=dev)
     part_i = torch.empty((max(n_chunks, 1), b, k), dtype=torch.int32,
@@ -77,7 +86,7 @@ def topk_score_cuda(queries, vectors, norms, bias=None, *, k: int,
     out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     err = lib.topk_score_launch(
-        *(build.ptr(t) for t in (queries, vectors, norms, bias, part_v,
+        *(build.ptr(t) for t in (queries, qt, vectors, norms, bias, part_v,
                                  part_i, out_v, out_i)),
         b, n, d, k, int(metric == "l2"), build.stream(queries),
     )

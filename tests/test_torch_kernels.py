@@ -349,6 +349,136 @@ def test_cuda_topk_score(cuda_device, kind, metric, n_rows, k):
     _close(pi, ki, True, "ids")
 
 
+# Shapes around the redesigned top-k kernel's tiles: 128-query tiles,
+# 128-row tiles, 4,096-row chunks, 16-deep slices, 16-byte row copies.
+# (B, N, D, k, case)
+TOPK_CASES = {
+    "one_query": (1, 9_000, 40, 10, None),
+    "ragged_query_tiles": (300, 5_000, 40, 10, None),
+    "d_not_multiple_of_4": (37, 5_000, 37, 10, None),
+    "misaligned_table": (37, 5_000, 40, 10, "misaligned"),
+    "n_below_one_row_tile": (37, 50, 40, 10, None),
+    "n_not_multiple_of_chunk": (130, 2 * 4096 + 77, 24, 10, None),
+    "ties_across_chunk_boundary": (37, 2 * 4096 + 77, 24, 10, "ties"),
+    "all_rows_biased_out": (37, 5_000, 40, 10, "dead"),
+    "k_1": (37, 9_000, 40, 1, None),
+    "k_64": (37, 9_000, 40, 64, None),
+}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["grid", "gauss"])
+@pytest.mark.parametrize("case", sorted(TOPK_CASES))
+def test_cuda_topk_score_shapes(cuda_device, kind, case):
+    """The kernel against its plain version at the edges of its tiling:
+    dists bitwise on grid data, ids exactly."""
+    b, n_rows, dim, k, extra = TOPK_CASES[case]
+    rng = np.random.default_rng(len(case))
+    vec = _data(kind, n_rows, dim, 6)
+    q = _data(kind, b, dim, 7)
+    bias = np.where(rng.random(n_rows) < 0.8, 0.0, np.inf).astype(np.float32)
+    if extra == "ties":
+        # one row copied to both sides of the first chunk boundary and
+        # into the second chunk, and a query on it: exact ties that must
+        # go to the lower row, whichever block reports first
+        for r in (4095, 4096, 8191, 8192):
+            vec[r] = vec[100]
+        q[:5] = vec[100]
+        bias[[100, 4095, 4096, 8191, 8192]] = 0.0
+    if extra == "dead":
+        bias[:] = np.inf
+    norms = (vec * vec).sum(1).astype(np.float32)
+    args = list(_to(cuda_device, q, vec, norms, bias))
+    if extra == "misaligned":
+        # 16-byte-divisible D on a table 4 bytes off alignment: 4-byte copies
+        buf = torch.empty(vec.size + 1, device=cuda_device)
+        buf[1:] = args[1].reshape(-1)
+        args[1] = buf[1:].view(n_rows, dim)
+        assert args[1].data_ptr() % 16 != 0
+    kv, ki = ttk.topk_score_cuda(*args, k=k)
+    pv, pi = ttk.topk_score_plain(*args, k=k)
+    _close(pv, kv, kind == "grid", "dists")
+    _close(pi, ki, True, "ids")
+    if extra == "ties":
+        assert n(ki)[:5, :5].tolist() == [[100, 4095, 4096, 8191, 8192]] * 5
+    if extra == "dead":
+        assert (n(ki) == -1).all() and np.isinf(n(kv)).all()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["grid", "gauss"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("with_norms", [True, False])
+def test_cuda_gather_one_matches_batched(cuda_device, kind, metric,
+                                         with_norms):
+    """The single-query kernel (public wrapper and bound launcher) gives the
+    bits of the batched kernel's B = 1 row, and of the plain version on
+    grid data."""
+    rng = np.random.default_rng(12)
+    vec = _data(kind, N_CAP, 130, 1, metric)
+    q = _data(kind, 3, 130, 2, metric)
+    ids = _ids(rng, 3, 64, N_CAP)
+    norms = (vec * vec).sum(1).astype(np.float32) if with_norms else None
+    ids_d, q_d, vec_d, norms_d = _to(cuda_device, ids, q, vec, norms)
+    for b in range(3):
+        one = tgd.gather_distance_cuda(ids_d[b], q_d[b], vec_d, norms_d,
+                                       metric=metric)
+        bound = tgd.BoundGather(q_d[b], vec_d, norms_d, metric=metric)
+        row = tgd.gather_distance_batched_cuda(ids_d[b:b + 1], q_d[b:b + 1],
+                                               vec_d, norms_d,
+                                               metric=metric)[0]
+        _close(row, one, True, "single vs batched row")
+        _close(row, bound(ids_d[b]), True, "bound vs batched row")
+        _close(tgd.gather_distance_plain(ids_d[b], q_d[b], vec_d, norms_d,
+                                         metric=metric),
+               one, kind == "grid", "single vs plain")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["grid", "gauss"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_cuda_gather_one_matches_beam_hop(cuda_device, kind, metric):
+    """The distances one fused hop writes into the beam are the single-query
+    kernel's for the same (query, row) pairs, bit for bit."""
+    q, carry, static = _beam_inputs(kind, metric, b=2, l=32, r=16, dim=40)
+    qd = _to(cuda_device, q)[0]
+    sd = _to(cuda_device, *static)
+    c = _to(cuda_device, *carry)
+    start = int(carry[0][0, 0])
+    out = tbh.beam_hop_fused_cuda(qd, *(x.clone() for x in c), *sd,
+                                  metric=metric, h=1)
+    ids, dists = out[0][0], out[1][0]
+    keep = (ids >= 0) & (ids != start)
+    assert int(keep.sum()) > 0
+    bound = tgd.BoundGather(qd[0], sd[1], sd[2], metric=metric)
+    got = bound(ids[keep].contiguous())
+    _close(dists[keep], got, True, "beam hop vs single-query kernel")
+
+
+@pytest.mark.requires_cuda
+def test_cuda_bound_gather_returns_fresh_tensors(cuda_device):
+    """Each call of the bound launcher returns its own output: the first
+    result is unchanged by the second call."""
+    rng = np.random.default_rng(13)
+    vec = _data("grid", N_CAP, 64, 1)
+    q = _data("grid", 1, 64, 2)[0]
+    ids = _ids(rng, 2, 64, N_CAP)
+    ids_d, q_d, vec_d = _to(cuda_device, ids, q, vec)
+    norms_d = (vec_d * vec_d).sum(1)
+    bound = tgd.BoundGather(q_d, vec_d, norms_d)
+    before = dict(tgd.LAUNCHES)
+    a = bound(ids_d[0])
+    a_copy = a.clone()
+    b = bound(ids_d[1])
+    torch.cuda.synchronize()
+    assert a.data_ptr() != b.data_ptr()
+    _close(a_copy, a, True, "first result after the second call")
+    _close(tgd.gather_distance_plain(ids_d[1], q_d, vec_d, norms_d), b, True,
+           "second result")
+    assert tgd.LAUNCHES["gather_distance"] == \
+        before["gather_distance"] + 2
+
+
 @pytest.mark.requires_cuda
 def test_cuda_topk_refuses_large_k(cuda_device):
     x = torch.zeros((4, 8), device=cuda_device)

@@ -1,7 +1,8 @@
 """Rules of the port: it imports neither JAX nor the JAX package, it imports
 without JAX installed, ``auto`` resolves by the state's device, the ``cuda``
-engine refuses CPU tensors (the int8 tier's kernels too), and the
-quantized state has the reference's leaves."""
+engine refuses CPU tensors (the int8 tier's kernels and the serial
+search's bound launcher too), and the quantized state has the reference's
+leaves."""
 import ast
 import subprocess
 import sys
@@ -91,6 +92,53 @@ def test_cuda_engine_refuses_cpu_tensors():
     with pytest.raises(ValueError):
         beam_hop.beam_hop_fused_cuda(q, *carry, state.adj, state.vectors,
                                      state.norms, ids[0, :2], ids[0, :2])
+
+
+def _bind_case(case):
+    """Arguments of ``BoundGather`` that it must refuse, and what it raises
+    (the error type and a pattern of its message)."""
+    q = torch.zeros(8)
+    vec = torch.zeros((40, 8))
+    norms = torch.zeros(40)
+    if case == "cpu_tensors":
+        return (q, vec, norms), ValueError, "one CUDA device"
+    if case == "mixed_devices":
+        return (q, vec.to("meta"), norms), ValueError, "cpu.*meta"
+    if case == "non_contiguous_table":
+        return (q, torch.zeros((8, 40)).T, norms), ValueError, "contiguous"
+    if case == "table_dtype":
+        return (q, vec.double(), norms), TypeError, "vectors must be"
+    if case == "norms_dtype":
+        return (q, vec, norms.half()), TypeError, "norms must be"
+    if case == "query_width":
+        return (torch.zeros(9), vec, norms), ValueError, "does not match"
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case", ["cpu_tensors", "mixed_devices",
+                                  "non_contiguous_table", "table_dtype",
+                                  "norms_dtype", "query_width"])
+def test_bound_gather_refuses_at_binding(case, monkeypatch):
+    """The serial search's bound single-query launcher runs its checks when
+    it is bound and raises; it never takes the plain version instead."""
+    def no_plain(*a, **kw):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(gather_distance, "gather_distance_plain", no_plain)
+    monkeypatch.setattr(gather_distance, "gather_distance_batched_plain",
+                        no_plain)
+    args, err, pattern = _bind_case(case)
+    before = dict(gather_distance.LAUNCHES)
+    with pytest.raises(err, match=pattern):
+        gather_distance.BoundGather(*args)
+    assert gather_distance.LAUNCHES == before
+    if case == "cpu_tensors":
+        # the cuda engine binds the same launcher for greedy_search
+        cfg = ANNConfig(dim=8, n_cap=40, r=4, backend="cuda")
+        state = init_state(cfg, "cpu")
+        eng = tbackend.resolve_backend(cfg, "cpu")
+        with pytest.raises(ValueError, match=pattern):
+            eng.bind_dists_to_ids(state, cfg, args[0])
 
 
 def test_wrappers_take_plain_version_on_cpu_only():
