@@ -10,11 +10,16 @@ Phases, any failure exits non-zero:
      the int8 twins over ``quantize_rows`` of the same tables) against
      their plain PyTorch versions, bitwise on grid-valued data (entries
      k/16, where every sum is exact in float32) and to rtol 1e-5 on
-     Gaussian data; CUDA-event times of the wrapper call, the plain
-     version, a one-call PyTorch yardstick where one exists, the kernel's
-     device-only time from a ``torch.profiler`` trace, and the bound from
-     the bytes / flops the inputs need; where the single-query gather's
-     host time goes, step by step; no spills in the redesigned kernels;
+     Gaussian data; CUDA-event times of the wrapper call (the serial
+     gather and the fused hops through the launchers bound once per
+     search, their public wrappers beside them; the batched gather in
+     turns with its yardstick), the plain version, a one-call PyTorch
+     yardstick where one exists, the kernel's device-only time from a
+     ``torch.profiler`` trace, and the bound from the bytes / flops the
+     inputs need; where the gathers' host time goes, step by step; what
+     the batched search's loop pays per super-step; the fused hops'
+     status word against ``lane_active``; no spills in the redesigned
+     kernels;
   3. the f32 main path end to end: ``ANNConfig(dim=128, n_cap=1_000_000)``
      on the card, a serial bootstrap, batched insert windows, Recall@10,
      in-place deletes with the Alg-6 sweep, reinserts, Recall@10 again, a
@@ -85,7 +90,7 @@ DEVICE_KERNELS = {
     "beam_hop_fused_q": ("beam_hop_kernel",),
 }
 # kernels redesigned for Hopper whose ptxas report must show no spills
-NO_SPILL = ("topk_partial_kernel", "gather_one_kernel")
+NO_SPILL = ("topk_partial_kernel", "gather_one_kernel", "beam_hop_kernel")
 # the kernels each path must launch
 F32_PATH = ("gather_distance_batched", "gather_distance", "beam_hop_fused",
             "topk_score")
@@ -130,6 +135,30 @@ def cuda_ms(fn, reps, warmup=2, setup=None):
         torch.cuda.synchronize()
         total += e0.elapsed_time(e1)
     return total / reps
+
+
+def interleaved_ms(fns, reps):
+    """Median ms (CUDA events around one call) of each of ``fns``, their
+    calls alternating over one window, so that each sees the same host."""
+    import statistics
+
+    import torch
+
+    for fn in fns:
+        fn()
+        fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for fn, ts in zip(fns, times):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize()
+            ts.append(e0.elapsed_time(e1))
+    return [statistics.median(ts) for ts in times]
 
 
 def device_ms(fn, reps, names, setup=None):
@@ -199,6 +228,51 @@ def gather_host_split(ids, q, vec, norms, reps=2000):
         "public_call": lambda: gd.gather_distance_cuda(ids, q, vec, norms),
         "bound_call": lambda: bound(ids),
     }
+    return time_steps(steps, reps)
+
+
+def batched_host_split(ids, qb, vec, norms, reps=2000):
+    """The same split for one call of the batched gather's public wrapper,
+    ``gather_distance_batched_cuda``."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import gather_distance as gd
+
+    lib = build.lib("gather_distance")
+    out = torch.empty(ids.shape, dtype=torch.float32, device="cuda")
+
+    def checks():
+        build.require_dtype(ids, torch.int32, "ids")
+        for t, what in ((qb, "queries"), (vec, "vectors"), (norms, "norms")):
+            build.require_dtype(t, torch.float32, what)
+        return qb.shape == (ids.shape[0], vec.shape[1]) and \
+            norms.shape == vec.shape[:1]
+
+    args = (ids.data_ptr(), qb.data_ptr(), vec.data_ptr(), norms.data_ptr(),
+            out.data_ptr(), ids.shape[0], ids.shape[1], vec.shape[0],
+            vec.shape[1], 1, build.stream(ids))
+    steps = {
+        "contiguous": lambda: (ids.contiguous(), qb.contiguous()),
+        "require_cuda": lambda: build.require_cuda(ids, qb, vec, norms),
+        "dtype_shape_checks": checks,
+        "torch_empty": lambda: torch.empty(ids.shape, dtype=torch.float32,
+                                           device=ids.device),
+        "build_lib": lambda: build.lib("gather_distance"),
+        "build_stream": lambda: build.stream(ids),
+        "data_ptrs": lambda: [build.ptr(t) for t in (ids, qb, vec, norms,
+                                                     out)],
+        "ctypes_launch": lambda: lib.gather_distance_launch(*args),
+        "public_call": lambda: gd.gather_distance_batched_cuda(ids, qb, vec,
+                                                               norms),
+    }
+    return time_steps(steps, reps)
+
+
+def time_steps(steps, reps):
+    """Mean host us of each step, repeated ``reps`` times on its own."""
+    import torch
+
     res = {}
     for name, fn in steps.items():
         for _ in range(20):
@@ -226,15 +300,21 @@ def make_table(n, d, grid, gen):
     return torch.randn((n, d), generator=gen, device="cuda")
 
 
-def hop_parity(name, plain, kern, qb, static, starts, d0, grid, n_cap, l,
-               mv, h, row_bytes, steps=8):
+def hop_parity(name, plain, kern, bind, qb, static, starts, d0, grid,
+               n_cap, l, mv, h, row_bytes, steps=8):
     """A fused hop kernel against its plain version over ``steps``
     super-steps from a fresh search carry, each step fed the plain output:
     bitwise on grid data, else distances to rtol 1e-5 with at most 1% of
-    lanes diverging; on Gaussian data also its times and bound."""
+    lanes diverging.  Each step also holds the launcher bound once per
+    search (``bind(qb, carry)``) to the public one, bit for bit, and the
+    status word to the carry: never unsorted, and active exactly when
+    ``lane_active`` finds an active lane in what the kernel left.  On
+    Gaussian data also its times (``ms`` through the bound launcher,
+    ``public_ms`` through the public one) and bound."""
     import torch
 
     from repro_torch.core import bitset
+    from repro_torch.kernels import beam_hop as bh
 
     b = qb.shape[0]
     d = qb.shape[1]
@@ -257,8 +337,23 @@ def hop_parity(name, plain, kern, qb, static, starts, d0, grid, n_cap, l,
     for step in range(steps):
         p = plain(qb, *carry, *static, h=h)
         kc = tuple(t.clone() for t in carry)
-        k_out = kern(qb, *kc, *static, h=h)
+        status = torch.zeros(1, dtype=torch.int32, device="cuda")
+        k_out = kern(qb, *kc, *static, h=h, status=status)
+        bc = tuple(t.clone() for t in carry)
+        bound = bind(qb, bc)
+        bound(bc)
         torch.cuda.synchronize()
+        word = int(status[0])
+        bi2, bd2, be2 = k_out[:3]
+        still = bool((((bi2 >= 0) & (be2 == 0) & torch.isfinite(bd2)).any(1)
+                      & (k_out[8] < mv)).any())
+        check(not word & bh.STATUS_UNSORTED,
+              f"{name}: unsorted beam reported at step {step}")
+        check(bool(word & bh.STATUS_ACTIVE) == still == bound.active(),
+              f"{name}: status active bit wrong at step {step}")
+        check(all(torch.equal(x, y) for x, y in zip(bc, k_out)),
+              f"{name}: bound launcher differs from the public one at "
+              f"step {step}")
         same_lane = torch.ones((b,), dtype=torch.bool, device="cuda")
         for x, y in zip(k_out, p):
             if x.dtype == torch.float32:
@@ -286,20 +381,74 @@ def hop_parity(name, plain, kern, qb, static, starts, d0, grid, n_cap, l,
         pc = plain(qb, *c0, *static, h=h)
         dcomp = int((pc[7] - c0[7]).sum())
         dhop = int((pc[8] - c0[8]).sum())
-        ms = cuda_ms(lambda c: kern(qb, *c, *static, h=h), 10,
-                     setup=lambda: tuple(t.clone() for t in c0))
-        dms = device_ms(lambda c: kern(qb, *c, *static, h=h), 10,
-                        DEVICE_KERNELS[name],
+        bc = tuple(t.clone() for t in c0)
+        bound = bind(qb, bc)
+
+        def reset():
+            for x, y in zip(bc, c0):
+                x.copy_(y)
+            return bc
+
+        status = torch.zeros(1, dtype=torch.int32, device="cuda")
+        ms = cuda_ms(bound, 10, setup=reset)
+        public_ms = cuda_ms(lambda c: kern(qb, *c, *static, h=h,
+                                           status=status), 10,
+                            setup=lambda: tuple(t.clone() for t in c0))
+        dms = device_ms(lambda c: kern(qb, *c, *static, h=h, status=status),
+                        10, DEVICE_KERNELS[name],
                         setup=lambda: tuple(t.clone() for t in c0))
         pms = cuda_ms(lambda c: plain(qb, *c, *static, h=h), 3,
                       setup=lambda: c0)
+        loop = loop_step_ms(bound, reset, kern, qb, static, h, c0, mv)
         carry_bytes = b * (l * 12 * 2 + mv * 8 + 24 + d * 4)
         by = dcomp * row_bytes + dhop * (4 * r + 8 * r + 8) + carry_bytes
         bms, bby = bound_ms(by, dcomp * 2 * d)
-        out.update(ms=ms, device_ms=dms, plain_ms=pms, library_ms=None,
-                   bound_ms=bms, bound_by=bby, rows_gathered=dcomp,
-                   hops=dhop)
+        out.update(ms=ms, public_ms=public_ms, device_ms=dms, plain_ms=pms,
+                   library_ms=None, bound_ms=bms, bound_by=bby,
+                   rows_gathered=dcomp, hops=dhop, **loop)
     return out
+
+
+def loop_step_ms(bound, reset, kern, qb, static, h, c0, mv, reps=20):
+    """What the batched search's loop pays per super-step, on the host's
+    clock to the end of its host read (medians of ``reps``): through the
+    bound launcher (the launch, then ``active()``'s read of the status
+    word), and as the loop did it through the public launcher (the int32
+    copy of ``beam_exp``, the launch, the bool copy back, ``lane_active``'s
+    ops and their host read)."""
+    import statistics
+
+    import torch
+
+    def bound_step(c):
+        bound(c)
+        return bound.active()
+
+    status = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def public_step(c):
+        bi, bd, be_bool = c[0], c[1], c[2] != 0
+        exp = be_bool.to(torch.int32)
+        out = kern(qb, bi, bd, exp, *c[3:], *static, h=h, status=status)
+        be = out[2] != 0
+        return bool(((((out[0] >= 0) & ~be & torch.isfinite(out[1])).any(1))
+                     & (out[8] < mv)).any())
+
+    res = {}
+    for key, step, setup in (
+        ("loop_step_ms", bound_step, reset),
+        ("public_loop_step_ms", public_step,
+         lambda: tuple(t.clone() for t in c0)),
+    ):
+        times = []
+        for _ in range(reps):
+            c = setup()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(c)
+            times.append((time.perf_counter() - t0) * 1e3)
+        res[key] = statistics.median(times)
+    return res
 
 
 def kernel_phase(seed, n_cap=1_000_000, d=128, r=64, l=128, b=512, h=4,
@@ -397,13 +546,22 @@ def kernel_phase(seed, n_cap=1_000_000, d=128, r=64, l=128, b=512, h=4,
                 # queries
                 by = nvalid * row_bytes + args[0].numel() * 8 + nq * d * 4
                 bms, bby = bound_ms(by, nvalid * 2 * d)
-                ms = cuda_ms(lambda _: kern(*args, metric="l2"), 50)
+                i2 = args[0].reshape(-1, r).clamp(min=0).long()
+                q2 = args[1].reshape(-1, d, 1)
+                if name == "gather_distance_batched":
+                    # the wrapper and its yardstick in turns, medians: the
+                    # comparison is of host costs and swings with the host
+                    ms, lms = interleaved_ms(
+                        [lambda: kern(*args, metric="l2"),
+                         lambda: lib[1](i2, q2)], 200)
+                    res[name]["timing"] = "interleaved medians, 200 each"
+                    res[name]["host_split_us"] = batched_host_split(*args)
+                else:
+                    ms = cuda_ms(lambda _: kern(*args, metric="l2"), 50)
+                    lms = cuda_ms(lambda _: lib[1](i2, q2), 20)
                 dms = device_ms(lambda _: kern(*args, metric="l2"), 50,
                                 DEVICE_KERNELS[name])
                 pms = cuda_ms(lambda _: plain(*args, metric="l2"), 20)
-                i2 = args[0].reshape(-1, r).clamp(min=0).long()
-                q2 = args[1].reshape(-1, d, 1)
-                lms = cuda_ms(lambda _: lib[1](i2, q2), 20)
                 res[name].update(ms=ms, device_ms=dms, plain_ms=pms,
                                  library_ms=lms, bound_ms=bms, bound_by=bby,
                                  library_call=lib[0])
@@ -422,18 +580,25 @@ def kernel_phase(seed, n_cap=1_000_000, d=128, r=64, l=128, b=512, h=4,
         start = int(torch.nonzero(ret)[0])
         lanes_valid = torch.arange(b, device="cuda") % 17 != 5  # masked lanes
         starts = torch.where(lanes_valid, start, -1).to(torch.int32)
-        for name, plain, kern, tables, row_bytes, d0_fn in (
+        def bind_f32(q, c):
+            return bh.BoundBeamHop(q, c, adj, vec, norms, nav_w, ret_w, h=h)
+
+        def bind_q(q, c):
+            return bh.BoundBeamHop(q, c, adj, store.codes, store.qnorms,
+                                   nav_w, ret_w, h=h, scales=store.scale)
+
+        for name, plain, kern, bind, tables, row_bytes, d0_fn in (
             ("beam_hop_fused", bh.beam_hop_fused_plain,
-             bh.beam_hop_fused_cuda, (vec, norms), 4 * d + 4,
+             bh.beam_hop_fused_cuda, bind_f32, (vec, norms), 4 * d + 4,
              lambda st: gd.gather_distance_batched_plain(st, qb, vec, norms)),
             ("beam_hop_fused_q", bh.beam_hop_fused_q_plain,
-             bh.beam_hop_fused_q_cuda, qtab, d + 8,
+             bh.beam_hop_fused_q_cuda, bind_q, qtab, d + 8,
              lambda st: qg.gather_distance_batched_q_plain(st, qb, *qtab)),
         ):
             static = (adj, *tables, nav_w, ret_w)
-            res[name] = hop_parity(name, plain, kern, qb, static, starts,
-                                   d0_fn(starts[:, None])[:, 0], grid, n_cap,
-                                   l, mv, h, row_bytes)
+            res[name] = hop_parity(name, plain, kern, bind, qb, static,
+                                   starts, d0_fn(starts[:, None])[:, 0],
+                                   grid, n_cap, l, mv, h, row_bytes)
 
         # ---- kernel 4: brute-force top-k ----------------------------------
         qt = queries[:q_topk].contiguous()
@@ -599,6 +764,7 @@ def main_path(seed, live, n_queries=1024, window=512, boot=256):
     qb = 256
     search_index(state, cfg, qt[:qb], k=10)
     torch.cuda.synchronize()
+    steps0 = ops.launch_counts()["beam_hop_fused"]
     t0 = time.perf_counter()
     for lo in range(0, n_queries, qb):
         ext, _, _ = search_index(state, cfg, qt[lo:lo + qb], k=10)
@@ -606,6 +772,8 @@ def main_path(seed, live, n_queries=1024, window=512, boot=256):
     qs = time.perf_counter() - t0
     out["qps"] = n_queries / qs
     out["query_batch"] = qb
+    out["query_supersteps"] = ops.launch_counts()["beam_hop_fused"] - steps0
+    out["query_ms_per_superstep"] = qs * 1e3 / out["query_supersteps"]
     out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     out["launches"] = ops.launch_counts()
     log(f"inserts/s {out['insert']['per_s']:.1f}, deletes/s "
@@ -665,12 +833,16 @@ def quant_path(seed, n, t_max=16, eval_every=4, qb=256, n_qps=1024):
     qs = np.tile(rb.queries, (reps, 1))[:n_qps]
     idx.search(qs[:qb])
     torch.cuda.synchronize()
+    steps0 = ops.launch_counts()["beam_hop_fused_q"]
     t1 = time.perf_counter()
     for lo in range(0, n_qps, qb):
         idx.search(qs[lo:lo + qb])
     torch.cuda.synchronize()
-    out["qps"] = n_qps / (time.perf_counter() - t1)
+    dt = time.perf_counter() - t1
+    out["qps"] = n_qps / dt
     out["query_batch"] = qb
+    out["query_supersteps"] = ops.launch_counts()["beam_hop_fused_q"] - steps0
+    out["query_ms_per_superstep"] = dt * 1e3 / out["query_supersteps"]
 
     ext, dists, slots = idx.search(rb.queries, k=10)
     out["launches"] = ops.launch_counts()

@@ -8,8 +8,9 @@ slots", and goes through a ``DistanceBackend``.  Three engines:
                 of the reference's ``jnp`` engine;
   * ``ref``   — the plain kernel oracles (``kernels/ref.py``);
   * ``cuda``  — the hand-written Hopper kernels: ``gather_distance`` for the
-                serial beam loop (bound once per search),
-                ``beam_hop_fused`` for the fused super-step,
+                serial beam loop and ``beam_hop_fused`` for the fused
+                super-step of the batched one (each bound once per
+                search, ``bind_dists_to_ids`` / ``bind_beam_superstep``),
                 ``topk_score`` for the exact scan, and their int8 twins
                 ``gather_distance_batched_q`` / ``beam_hop_fused_q`` for the
                 quantized tier.  It raises on tensors that are not on a
@@ -61,18 +62,33 @@ class DistanceBackend:
         raise NotImplementedError
 
     def beam_superstep(self, state: GraphState, cfg: ANNConfig, queries,
-                       carry, *, h: int, l: int, max_visits: int,
-                       masks=None):
-        """Advance the batched beam engine's carry by ``h`` hops.  ``masks``
-        optionally carries the packed (navigable, returnable) words, which
-        are loop-invariant within one search.  Default: ``h`` compositions
-        of the shared hop body over ``dists_to_ids_batched``."""
+                       carry, *, h: int, l: int, max_visits: int):
+        """Advance the batched beam engine's carry by ``h`` hops: ``h``
+        compositions of the shared hop body over ``dists_to_ids_batched``."""
         from .search_batched import superstep_reference
 
         return superstep_reference(
             self.dists_to_ids_batched, state, cfg, queries, carry,
             h=h, l=l, max_visits=max_visits,
         )
+
+    def bind_beam_superstep(self, state: GraphState, cfg: ANNConfig, queries,
+                            carry, *, h: int, quantized: bool = False):
+        """The super-step bound to one batched search from its first
+        ``carry``, over the int8 tier when ``quantized``: ``.carry`` is the
+        carry to start from, ``step(carry)`` advances a carry by ``h`` hops
+        and returns it, and ``step.active()`` tells whether a lane is still
+        active after the last call.  Default: ``beam_superstep`` (or
+        ``beam_superstep_q``) with ``lane_active`` as the stop test."""
+        from .search_batched import PlainSuperstep
+
+        superstep = self.beam_superstep_q if quantized \
+            else self.beam_superstep
+        l, max_visits = carry.beam_ids.shape[1], carry.vis_ids.shape[1]
+        return PlainSuperstep(
+            lambda c: superstep(state, cfg, queries, c, h=h, l=l,
+                                max_visits=max_visits),
+            carry, max_visits)
 
     # -- the quantized memory tier (core/quant.py) --------------------------
 
@@ -86,8 +102,7 @@ class DistanceBackend:
         return quant_dists_to_ids_batched(state, cfg, queries, ids)
 
     def beam_superstep_q(self, state: GraphState, cfg: ANNConfig, queries,
-                         carry, *, h: int, l: int, max_visits: int,
-                         masks=None):
+                         carry, *, h: int, l: int, max_visits: int):
         """``beam_superstep`` over the quantized tier: the same carry
         contract, distances from ``dists_to_ids_batched_q``."""
         from .search_batched import superstep_reference
@@ -264,13 +279,33 @@ class CudaBackend(TorchBackend):
             metric=cfg.metric,
         )
 
-    def beam_superstep(self, state, cfg, queries, carry, *, h, l,
-                       max_visits, masks=None):
-        from ..kernels.beam_hop import beam_hop_fused_cuda
+    def beam_superstep(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the cuda engine's super-step is the fused hop kernel, bound "
+            "once per search: bind_beam_superstep")
 
-        return _fused_superstep(beam_hop_fused_cuda, state, cfg, queries,
-                                carry, (state.vectors, state.norms), h,
-                                masks)
+    beam_superstep_q = beam_superstep
+
+    def bind_beam_superstep(self, state, cfg, queries, carry, *, h,
+                            quantized=False):
+        """The fused hop kernel's launcher (``BoundBeamHop``), checked once
+        and bound to the carry (with an int32 ``beam_exp``, updated in
+        place), the tables, the packed masks, the queries and the stream;
+        the kernel reports in a status word whether a lane is still
+        active."""
+        from ..kernels.beam_hop import BoundBeamHop
+        from .search_batched import _BLoop
+
+        carry = _BLoop(*carry[:2], carry[2].to(torch.int32), *carry[3:])
+        nav_words, ret_words = pack_masks(state)
+        if quantized:
+            q = state.quant
+            return BoundBeamHop(queries, carry, state.adj, q.codes, q.qnorms,
+                                nav_words, ret_words, metric=cfg.metric,
+                                h=h, scales=q.scale)
+        return BoundBeamHop(queries, carry, state.adj, state.vectors,
+                            state.norms, nav_words, ret_words,
+                            metric=cfg.metric, h=h)
 
     def dists_to_ids_batched_q(self, state, cfg, queries, ids):
         from ..kernels.quant_gather import gather_distance_batched_q_cuda
@@ -281,15 +316,6 @@ class CudaBackend(TorchBackend):
             metric=cfg.metric,
         )
 
-    def beam_superstep_q(self, state, cfg, queries, carry, *, h, l,
-                         max_visits, masks=None):
-        from ..kernels.beam_hop import beam_hop_fused_q_cuda
-
-        q = state.quant
-        return _fused_superstep(beam_hop_fused_q_cuda, state, cfg, queries,
-                                carry, (q.codes, q.scale, q.qnorms), h,
-                                masks)
-
     def brute_force_topk(self, state, cfg, queries, *, k):
         from ..kernels.topk_score import topk_score_cuda
 
@@ -297,25 +323,6 @@ class CudaBackend(TorchBackend):
             queries, state.vectors, state.norms, bias, k=k,
             metric=cfg.metric,
         ))
-
-
-def _fused_superstep(kernel, state, cfg, queries, carry, tables, h, masks):
-    """One launch of a fused hop kernel over ``tables`` (the f32 rows and
-    norms, or the int8 codes, scales and qnorms); the launch updates the
-    carry's tensors in place."""
-    if masks is None:
-        masks = pack_masks(state)
-    nav_words, ret_words = masks
-    exp = carry.beam_exp.to(torch.int32)
-    out = kernel(
-        queries, carry.beam_ids, carry.beam_dists, exp, carry.seen,
-        carry.vis_ids, carry.vis_dists, carry.n_vis, carry.n_comps,
-        carry.n_hops, state.adj, *tables, nav_words, ret_words,
-        metric=cfg.metric, h=h,
-    )
-    bi, bd, be, seen, vi, vd, n_vis, n_comps, n_hops = out
-    return type(carry)(bi, bd, be != 0, seen, vi, vd, n_vis, n_comps,
-                       n_hops)
 
 
 def pack_masks(state: GraphState):

@@ -6,10 +6,13 @@ bitmap (``core/bitset.py``), one (B, max_visits) visited list and per-lane
 counters.  A lane whose frontier is exhausted is an exact no-op for further
 hops, so hops group into super-steps of H (``ANNConfig.hop_fused``) without
 changing any lane's traversal.  The reference's ``lax.while_loop`` is a
-Python loop with one host read of ``any(active)`` per super-step; the
-``cuda`` engine runs each super-step as one launch of the fused hop kernel
-and packs the navigable / returnable masks once per search (the state
-cannot change mid-search).
+Python loop with one host read of ``any(active)`` per super-step.  The
+``cuda`` engine binds the fused hop kernel once per search
+(``DistanceBackend.bind_beam_superstep``): the navigable / returnable masks
+are packed once (the state cannot change mid-search), the carry keeps an
+int32 ``beam_exp`` and is updated in place, and each super-step is one
+launch plus one host read of the status word in which the kernel reports
+whether a lane is still active (and refuses an unsorted beam).
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from . import bitset
-from .backend import BIG, pack_masks, resolve_backend
+from .backend import BIG, resolve_backend
 from .search import SearchResult, final_topk
 from .types import INVALID, ANNConfig, GraphState, clip_ids, navigable
 
@@ -152,6 +155,26 @@ def superstep_reference(dist_fn: BatchedDistanceFn, state: GraphState,
     return carry
 
 
+class PlainSuperstep:
+    """A super-step as a function ``carry -> carry``, with ``lane_active``
+    on the carry it returned as the stop test: the loop's hop body, and the
+    fused super-step of an engine without a bound kernel."""
+
+    def __init__(self, body: Callable[[_BLoop], _BLoop], carry: _BLoop,
+                 max_visits: int):
+        self.carry = carry
+        self._body = body
+        self._max_visits = max_visits
+
+    def __call__(self, carry: _BLoop) -> _BLoop:
+        self.carry = self._body(carry)
+        return self.carry
+
+    def active(self) -> bool:
+        """Whether a lane is still active after the last call."""
+        return bool(lane_active(self.carry, self._max_visits).any())
+
+
 def batched_greedy_search(state: GraphState, cfg: ANNConfig,
                           queries: torch.Tensor, *, k: int, l: int,
                           max_visits: Optional[int] = None,
@@ -207,23 +230,23 @@ def batched_greedy_search(state: GraphState, cfg: ANNConfig,
 
     h = resolved_hop_fused(cfg, dev)
     if h <= 0:
-        body = make_hop_body(state, cfg, queries, dist_fn, l=l,
-                             max_visits=max_visits)
+        step = PlainSuperstep(make_hop_body(state, cfg, queries, dist_fn,
+                                            l=l, max_visits=max_visits),
+                              s, max_visits)
     elif distance_fn is not None:
-        def body(c):
-            return superstep_reference(dist_fn, state, cfg, queries, c, h=h,
-                                       l=l, max_visits=max_visits)
+        step = PlainSuperstep(
+            lambda c: superstep_reference(dist_fn, state, cfg, queries, c,
+                                          h=h, l=l, max_visits=max_visits),
+            s, max_visits)
     else:
-        masks = pack_masks(state) if backend.name == "cuda" else None
-        superstep = backend.beam_superstep_q if use_q \
-            else backend.beam_superstep
-
-        def body(c):
-            return superstep(state, cfg, queries, c, h=h, l=l,
-                             max_visits=max_visits, masks=masks)
-
-    while bool(lane_active(s, max_visits).any()):
-        s = body(s)
+        step = backend.bind_beam_superstep(state, cfg, queries, s, h=h,
+                                           quantized=use_q)
+    carry = step.carry
+    go = bool(lane_active(s, max_visits).any())
+    while go:
+        carry = step(carry)
+        go = step.active()
+    s = carry._replace(beam_exp=carry.beam_exp.to(torch.bool))
 
     if use_q:
         # exact rescore: re-rank the surviving beam against the f32 table,
@@ -264,7 +287,7 @@ def merge_topk(dists_a, dists_b, k: int, *payload_pairs):
 
 
 __all__ = [
-    "DEFAULT_FUSED_HOPS", "batched_greedy_search", "lane_active",
-    "make_hop_body", "merge_topk", "next_bucket", "pad_batch",
+    "DEFAULT_FUSED_HOPS", "PlainSuperstep", "batched_greedy_search",
+    "lane_active", "make_hop_body", "merge_topk", "next_bucket", "pad_batch",
     "resolved_hop_fused", "superstep_reference",
 ]

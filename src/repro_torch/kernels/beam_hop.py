@@ -10,22 +10,33 @@ sets their seen bits and stable-merges them into the beam, keeping the
 best l.  Inactive lanes are exact no-ops.
 
 Bound on the H100: bytes, in the random gathers (per hop and lane one
-adjacency row and up to R rows of 4D bytes).  One block per lane keeps the
-beam, the adjacency row and the new distances in shared memory across all H
-hops; the seen row (125 KB per lane at n_cap = 10^6) stays in global memory
-and only the words a hop touches are tested and set in place.  The merge
-ranks the (l + R) entries directly, which equals the reference's stable
-``lax.sort`` of the concatenation.  The quantized twin (``beam_hop_fused_q``)
-is the same kernel over the int8 code table (D bytes a row instead of 4D):
-the raw dot accumulates in f32, the row's scale multiplies the product, and
-the l2 norm term is the cached ``qnorms``.
+adjacency row and up to R rows of 4D bytes), and in time the chain of
+dependent steps of each hop.  One block per lane keeps the beam sorted in
+shared memory across all H hops; a hop loads its neighbours' freshness
+words at once, copies every fresh row into shared memory at once (TMA bulk
+copies where the rows allow), scores them one warp a row, and merges by
+binary searches over the sorted beam, which equals the reference's stable
+``lax.sort`` of the concatenation.  The seen row (125 KB per lane at
+n_cap = 10^6) stays in global memory and only the words a hop touches are
+tested and set in place.  The quantized twin (``beam_hop_fused_q``) is the
+same kernel over the int8 code table (D bytes a row instead of 4D): the raw
+dot accumulates in f32, the row's scale multiplies the product, and the l2
+norm term is the cached ``qnorms``.
 
 The carry is the reference's: ``(beam_ids i32[B,l], beam_dists f32[B,l],
 beam_exp i32[B,l], seen i32[B,W], vis_ids i32[B,mv], vis_dists f32[B,mv],
 n_vis, n_comps, n_hops i32[B])``; ``seen``, ``nav_words`` and ``ret_words``
-are the int32 bit patterns of ``core/bitset.py``.  The CUDA launcher
-updates the carry tensors IN PLACE and returns them; the plain version
-returns new tensors.
+are the int32 bit patterns of ``core/bitset.py``.  Each lane's
+``beam_dists`` must be non-decreasing, as every carry the search makes is
+and every super-step leaves it.  The CUDA launchers update the carry
+tensors IN PLACE and return them; the plain version returns new tensors.
+
+The kernel ORs two bits into an int32 status word: ``STATUS_UNSORTED``
+when a lane's beam was not sorted (that lane is left untouched) and
+``STATUS_ACTIVE`` when a lane is still active after its H hops (the
+``lane_active`` test on the carry it leaves).  ``BoundBeamHop`` is the
+launcher the batched search binds once: every check at binding, then per
+super-step one launch and, in ``active()``, one host read of the status.
 """
 from __future__ import annotations
 
@@ -131,12 +142,12 @@ def beam_hop_fused_q_plain(queries, beam_ids, beam_dists, beam_exp, seen,
         metric=metric, h=h, scales=scales)
 
 
-def _launch(queries, carry, adj, rows, scales, norms, nav_words, ret_words,
-            metric, h, key):
-    """Check and launch either kernel (``scales`` None: f32 rows)."""
-    queries = queries.contiguous()
-    build.require_cuda(queries, *carry, adj, rows, scales, norms, nav_words,
-                       ret_words)
+STATUS_UNSORTED, STATUS_ACTIVE = 1, 2
+
+
+def _check(queries, carry, adj, rows, scales, norms, nav_words, ret_words):
+    """Every check of a launch, the device last; returns the kernel's
+    dimensions (B, l, r, mv, n_cap, W, D)."""
     (beam_ids, beam_dists, beam_exp, seen, vis_ids, vis_dists, n_vis,
      n_comps, n_hops) = carry
     for t, what in ((beam_ids, "beam_ids"), (beam_exp, "beam_exp"),
@@ -158,49 +169,143 @@ def _launch(queries, carry, adj, rows, scales, norms, nav_words, ret_words,
     if l > 256 or r > 128 or d > 8192:
         raise ValueError(f"beam_hop kernel takes l <= 256, r <= 128, "
                          f"dim <= 8192; got l={l} r={r} dim={d}")
-    if (seen.shape != (b, w) or nav_words.shape != (w,)
-            or ret_words.shape != (w,) or w * 32 < n_cap
-            or queries.shape != (b, d) or rows.shape[0] != n_cap
-            or norms.shape != (n_cap,)
+    if (beam_dists.shape != (b, l) or beam_exp.shape != (b, l)
+            or seen.shape != (b, w) or vis_dists.shape != (b, mv)
+            or any(t.shape != (b,) for t in (n_vis, n_comps, n_hops))
+            or nav_words.shape != (w,) or ret_words.shape != (w,)
+            or w * 32 < n_cap or queries.shape != (b, d)
+            or rows.shape[0] != n_cap or norms.shape != (n_cap,)
             or (scales is not None and scales.shape != (n_cap,))):
         raise ValueError("beam_hop: inconsistent carry shapes")
+    if scales is not None and rows.data_ptr() % 4:
+        raise ValueError("codes must be 4-byte aligned")
+    if not all(t is None or t.is_contiguous()
+               for t in (queries, *carry, adj, rows, scales, norms,
+                         nav_words, ret_words)):
+        raise ValueError("the CUDA kernels need contiguous tensors")
+    build.require_cuda(queries, *carry, adj, rows, scales, norms, nav_words,
+                       ret_words)
+    return b, l, r, mv, n_cap, w, d
+
+
+def _entry(scales):
     lib = build.lib("beam_hop")
-    if scales is None:
-        fn, tables = lib.beam_hop_launch, (rows, norms)
+    return lib.beam_hop_launch if scales is None else lib.beam_hop_q_launch
+
+
+def _tables(rows, scales, norms):
+    return (rows, norms) if scales is None else (rows, scales, norms)
+
+
+def _launch(queries, carry, adj, rows, scales, norms, nav_words, ret_words,
+            metric, h, status, key):
+    """Check and launch either kernel (``scales`` None: f32 rows).  With no
+    ``status`` the launcher makes one and raises on ``STATUS_UNSORTED``
+    (one host read)."""
+    queries = queries.contiguous()
+    dims = _check(queries, carry, adj, rows, scales, norms, nav_words,
+                  ret_words)
+    own = status is None
+    if own:
+        status = torch.zeros(1, dtype=torch.int32, device=queries.device)
     else:
-        if rows.data_ptr() % 4:
-            raise ValueError("codes must be 4-byte aligned")
-        fn, tables = lib.beam_hop_q_launch, (rows, scales, norms)
-    err = fn(*(build.ptr(t) for t in (queries, *carry, adj, *tables,
-                                      nav_words, ret_words)),
-             b, l, r, mv, n_cap, w, d, h, int(metric == "l2"),
-             build.stream(queries))
+        build.require_dtype(status, torch.int32, "status")
+        build.require_cuda(queries, status)
+    err = _entry(scales)(
+        *(build.ptr(t) for t in (queries, *carry, adj,
+                                 *_tables(rows, scales, norms), nav_words,
+                                 ret_words, status)),
+        None, *dims, h, int(metric == "l2"), build.stream(queries))
     build.check(err, key)
     LAUNCHES[key] += 1
+    if own and int(status[0]) & STATUS_UNSORTED:
+        raise RuntimeError(f"{key}: a lane's beam is not sorted by distance")
     return carry
+
+
+class BoundBeamHop:
+    """The fused super-step bound to one search: its queries, its carry
+    (updated in place; ``beam_exp`` int32), the adjacency, the f32 rows and
+    norms or (with ``scales``) the int8 codes, scales and qnorms, the packed
+    masks, the metric and H.
+
+    Binding runs every check of ``beam_hop_fused_cuda`` (dtypes, shapes,
+    l <= 256, r <= 128, dim <= 8192, the codes' alignment, contiguous CUDA
+    tensors on one device) and caches the ``ctypes`` function, the
+    pointers and the raw stream handle; it raises on anything the kernel
+    does not take and never falls back to the plain version.  ``bound(
+    carry)`` takes the bound carry itself (``bound.carry``), launches one
+    super-step in place and returns it; ``active()`` reads, with one host read, whether any lane
+    is still active after the last launch, and raises when a lane's beam
+    was not sorted.  Two status words alternate, so a launch clears the
+    word of the next one and no call needs a memset."""
+
+    __slots__ = ("_keep", "carry", "_fn", "_ptrs", "_dims", "_stream",
+                 "_status", "_words", "_k", "_key")
+
+    def __init__(self, queries, carry, adj, rows, norms, nav_words,
+                 ret_words, *, metric: str = "l2", h: int = 4, scales=None):
+        queries = queries.contiguous()
+        dims = _check(queries, tuple(carry), adj, rows, scales, norms,
+                      nav_words, ret_words)
+        tables = _tables(rows, scales, norms)
+        self._status = torch.zeros(2, dtype=torch.int32,
+                                   device=queries.device)
+        self._words = (self._status.data_ptr(), self._status.data_ptr() + 4)
+        self._keep = (queries, adj, *tables, nav_words, ret_words)
+        self.carry = carry
+        self._fn = _entry(scales)
+        self._ptrs = tuple(t.data_ptr() for t in (queries, *carry, adj,
+                                                  *tables, nav_words,
+                                                  ret_words))
+        self._dims = (*dims, h, int(metric == "l2"))
+        self._stream = build.stream(queries)
+        self._k = 0
+        self._key = "beam_hop_fused" if scales is None else "beam_hop_fused_q"
+
+    def __call__(self, carry):
+        if len(carry) != 9 or any(a is not b
+                                  for a, b in zip(carry, self.carry)):
+            raise ValueError("BoundBeamHop: not the carry it was bound to")
+        k = self._k
+        err = self._fn(*self._ptrs, self._words[k], self._words[k ^ 1],
+                       *self._dims, self._stream)
+        build.check(err, self._key)
+        LAUNCHES[self._key] += 1
+        self._k = k ^ 1
+        return carry
+
+    def active(self) -> bool:
+        """Whether a lane is still active after the last launch."""
+        word = self._status.tolist()[self._k ^ 1]
+        if word & STATUS_UNSORTED:
+            raise RuntimeError(f"{self._key}: a lane's beam is not sorted "
+                               f"by distance")
+        return bool(word & STATUS_ACTIVE)
 
 
 def beam_hop_fused_cuda(queries, beam_ids, beam_dists, beam_exp, seen,
                         vis_ids, vis_dists, n_vis, n_comps, n_hops, adj,
                         vectors, norms, nav_words, ret_words, *,
-                        metric: str = "l2", h: int = 4):
-    """Launch the kernel: updates the carry in place and returns it."""
+                        metric: str = "l2", h: int = 4, status=None):
+    """Launch the kernel: updates the carry in place and returns it.
+    ``status`` (int32, on the card) collects the ``STATUS_*`` bits."""
     carry = (beam_ids, beam_dists, beam_exp, seen, vis_ids, vis_dists,
              n_vis, n_comps, n_hops)
     return _launch(queries, carry, adj, vectors, None, norms, nav_words,
-                   ret_words, metric, h, "beam_hop_fused")
+                   ret_words, metric, h, status, "beam_hop_fused")
 
 
 def beam_hop_fused_q_cuda(queries, beam_ids, beam_dists, beam_exp, seen,
                           vis_ids, vis_dists, n_vis, n_comps, n_hops, adj,
                           codes, scales, qnorms, nav_words, ret_words, *,
-                          metric: str = "l2", h: int = 4):
+                          metric: str = "l2", h: int = 4, status=None):
     """Launch the quantized kernel: updates the carry in place and returns
-    it."""
+    it.  ``status`` as for ``beam_hop_fused_cuda``."""
     carry = (beam_ids, beam_dists, beam_exp, seen, vis_ids, vis_dists,
              n_vis, n_comps, n_hops)
     return _launch(queries, carry, adj, codes, scales, qnorms, nav_words,
-                   ret_words, metric, h, "beam_hop_fused_q")
+                   ret_words, metric, h, status, "beam_hop_fused_q")
 
 
 def beam_hop_fused(*args, metric: str = "l2", h: int = 4):

@@ -34,8 +34,8 @@ SIGNATURES = {
         ("gather_one_launch", [_P] * 5 + [_I] * 5 + [_P]),
     ],
     "beam_hop": [
-        ("beam_hop_launch", [_P] * 15 + [_I] * 9 + [_P]),
-        ("beam_hop_q_launch", [_P] * 16 + [_I] * 9 + [_P]),
+        ("beam_hop_launch", [_P] * 17 + [_I] * 9 + [_P]),
+        ("beam_hop_q_launch", [_P] * 18 + [_I] * 9 + [_P]),
     ],
     "topk_score": [
         ("topk_score_launch", [_P] * 9 + [_I] * 5 + [_P]),
@@ -118,25 +118,39 @@ def build_all() -> dict:
         return _LIBS
 
 
-def build_variant(name: str, defines) -> ctypes.CDLL:
-    """A diagnostic build of one source with extra ``-D`` macros, beside the
-    regular libraries (nothing on the port's path loads it).  Raises on a
-    failed build."""
+def build_variant(name: str, defines, source=None, includes=(),
+                  signatures=None) -> ctypes.CDLL:
+    """A diagnostic build with extra ``-D`` macros, beside the regular
+    libraries (nothing on the port's path loads it): of ``csrc/<name>.cu``,
+    or of another version of it at ``source`` (its library name then
+    carries a hash of that file and of the headers it can include).
+    ``includes`` are searched before ``csrc/``; ``signatures`` replace
+    ``SIGNATURES[name]`` for a source whose entry points differ.  Raises on
+    a failed build."""
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
-    so = out / f"lib{name}-{'-'.join(d.lower() for d in defines)}.so"
+    src = Path(source) if source is not None else CSRC / f"{name}.cu"
+    tag = "-".join(d.lower() for d in defines)
+    if source is not None:
+        h = hashlib.sha256(src.read_bytes())
+        for d in includes:  # csrc/'s headers are in build_dir()'s hash
+            for header in sorted(Path(d).glob("*.cuh")):
+                h.update(header.name.encode() + header.read_bytes())
+        tag += "-" + h.hexdigest()[:12]
+    so = out / f"lib{name}-{tag}.so"
     if not so.exists():
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        inc = [a for d in (*includes, CSRC) for a in ("-I", str(d))]
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-I",
-             str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), *inc,
+             "-o", str(tmp), str(src)],
             capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {so.name}:\n"
                                f"{(proc.stdout + proc.stderr)[-4000:]}")
         os.replace(tmp, so)
     out_lib = ctypes.CDLL(str(so))
-    for fn, argtypes in SIGNATURES[name]:
+    for fn, argtypes in signatures or SIGNATURES[name]:
         f = getattr(out_lib, fn)
         f.argtypes = argtypes
         f.restype = ctypes.c_int

@@ -9,7 +9,10 @@ a multiple of 128, duplicate neighbour ids, a tombstoned entry point,
 masked lanes, H not dividing the hop count and n_cap not a multiple of 32.
 
 The int8 tier's kernels (``quant_gather``, ``beam_hop_fused_q``) are held
-against the reference in ``tests/test_torch_quant.py``.
+against the reference in ``tests/test_torch_quant.py``.  The plain fused
+hops, and the torch engine's batched search, are also held to the
+invariant the CUDA hop kernel's merge relies on: every super-step leaves
+each lane's beam sorted by distance.
 
 The ``requires_cuda`` tests run the CUDA kernels against their plain
 versions on the card (``python -m pytest --noconftest -m requires_cuda
@@ -239,6 +242,96 @@ def test_topk_score_plain(kind, metric, n_rows, live):
                                    metric=metric)
     _close(rv, tv2, exact, "ref vs ref dists")
     _close(ri, ti2, True, "ref vs ref ids")
+
+
+def _sorted_rows(x):
+    """True when every row of ``x`` is non-decreasing (inf included)."""
+    x = n(x)
+    return bool((x[:, :-1] <= x[:, 1:]).all())
+
+
+@pytest.mark.parametrize("kind", ["grid", "gauss"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_plain_superstep_keeps_beam_sorted(kind, metric, quantized):
+    """Every plain super-step of the ``_beam_inputs`` streams, and the
+    reference's ``beam_hop_ref`` / ``beam_hop_ref_q`` beside it, leaves each
+    lane's ``beam_dists`` non-decreasing: the invariant the CUDA kernel's
+    merge relies on (it refuses a beam that breaks it)."""
+    import jax.numpy as jnp
+
+    from repro.kernels.beam_hop import beam_hop_ref, beam_hop_ref_q
+
+    if quantized and kind == "grid":
+        kind = "qgrid"
+    q, carry, static = _beam_inputs(kind, metric)
+    if quantized:
+        adj, vec, _, nav, ret = static
+        static = (adj, *quant_tables(vec), nav, ret)
+    tc = tuple(t(x) for x in carry)
+    jc = tuple(jnp.asarray(x) for x in carry)
+    ts = tuple(t(x) for x in static)
+    js = tuple(jnp.asarray(x) for x in static)
+    assert _sorted_rows(tc[1])
+    for step in range(12):
+        if quantized:
+            tc = tbh.beam_hop_fused_q(t(q), *tc, *ts, metric=metric, h=3)
+            jc = beam_hop_ref_q(jnp.asarray(q), *jc, *js, metric=metric,
+                                h=3)
+        else:
+            tc = tbh.beam_hop_fused(t(q), *tc, *ts, metric=metric, h=3)
+            jc = beam_hop_ref(jnp.asarray(q), *jc, *js, metric=metric, h=3)
+        assert _sorted_rows(tc[1]), f"plain, step {step}"
+        assert _sorted_rows(jc[1]), f"reference, step {step}"
+    assert n(tc[8]).sum() > 0
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_torch_engine_search_keeps_beam_sorted(metric, quantized,
+                                               monkeypatch):
+    """Every super-step of ``batched_greedy_search`` on the torch engine,
+    through inserts and a query batch, starts and ends with each lane's
+    ``beam_dists`` non-decreasing."""
+    import dataclasses
+
+    from torch_parity import small_kw
+
+    from repro_torch.core import api as tapi
+    from repro_torch.core import backend as tbackend
+    from repro_torch.core.search_batched import batched_greedy_search
+    from repro_torch.core.types import ANNConfig, init_index_state
+
+    steps = []
+
+    def checked(name):
+        inner = getattr(tbackend.DistanceBackend, name)
+
+        def superstep(self, state, cfg, queries, carry, **kw):
+            assert _sorted_rows(carry.beam_dists), f"{name} input"
+            out = inner(self, state, cfg, queries, carry, **kw)
+            assert _sorted_rows(out.beam_dists), f"{name} output"
+            steps.append(name)
+            return out
+        return superstep
+
+    for name in ("beam_superstep", "beam_superstep_q"):
+        monkeypatch.setattr(tbackend.TorchBackend, name, checked(name))
+    cfg = dataclasses.replace(
+        ANNConfig(**small_kw(metric, dim=16, n_cap=200), backend="torch",
+                  quantized=quantized), hop_fused=3)
+    kind = "qgrid" if quantized else "grid"
+    data = _data(kind, 140, 16, 3, metric)
+    st = init_index_state(cfg, 140, device="cpu")
+    st, _ = tapi.apply(st, cfg, tapi.insert_batch(np.arange(20), data[:20],
+                                                  device="cpu"),
+                       sequential=True)
+    st, _ = tapi.apply(st, cfg, tapi.insert_batch(np.arange(20, 140),
+                                                  data[20:], device="cpu"))
+    res = batched_greedy_search(st.graph, cfg, t(_data(kind, 9, 16, 4)),
+                                k=5, l=24)
+    assert ("beam_superstep_q" if quantized else "beam_superstep") in steps
+    assert (n(res.n_hops) > 0).all()
 
 
 def test_stable_topk_breaks_ties_low():
@@ -491,3 +584,219 @@ def test_cuda_bitset_pack_matches_plain(cuda_device):
     bits = torch.rand((3, 1000), device=cuda_device) < 0.5
     np.testing.assert_array_equal(n(tbitset.pack_bits(bits)),
                                   n(tbitset.pack_bits(bits.cpu())))
+
+
+# Shapes around the redesigned fused hop: (B, l, r, dim, extra).  D = 40
+# takes TMA bulk copies for f32 rows (160 bytes) and 4-byte cp.async for
+# int8 rows (40 bytes); D = 2,048 f32 rows (8 KB) stage four to a round, so
+# a hop takes several rounds; r = 128 with l = 256 fills the kernel's limits;
+# "dup" gives the start vertex an adjacency row of one id repeated, "nofresh"
+# marks every neighbour of the start as seen in lane 2 (a hop with no fresh
+# neighbour there).
+HOP_CASES = {
+    "d40": (9, 32, 16, 40, None),
+    "d128": (9, 32, 16, 128, None),
+    "d2048_rounds": (5, 32, 16, 2048, None),
+    "r128_l256": (5, 256, 128, 40, None),
+    "duplicated_row": (9, 32, 16, 40, "dup"),
+    "no_fresh_lane": (9, 32, 16, 40, "nofresh"),
+    "b1": (1, 32, 16, 40, None),
+    "b600": (600, 32, 16, 40, None),
+}
+
+
+def _hop_case(case, kind, metric, quantized):
+    """(queries, carry, static) of one ``HOP_CASES`` entry, as numpy; the
+    static tables are the int8 tier's when ``quantized``."""
+    b, l, r, dim, extra = HOP_CASES[case]
+    if quantized and kind == "grid":
+        kind = "qgrid"
+    # b = 1 takes lane 0 of two: _beam_inputs masks lane b // 2
+    q, carry, static = _beam_inputs(kind, metric, b=max(b, 2), l=l, r=r,
+                                    dim=dim)
+    q, carry = q[:b], tuple(x[:b] for x in carry)
+    adj, vec, norms, nav, ret = static
+    start = int(carry[0][0, 0])
+    if extra == "dup":
+        navbits = np.unpackbits(nav.view(np.uint8), bitorder="little")
+        x = int(np.nonzero(navbits[:N_CAP])[0][1])
+        adj[start, :] = x if x != start else int(
+            np.nonzero(navbits[:N_CAP])[0][2])
+    if extra == "nofresh":
+        for nb in adj[start]:
+            if nb >= 0:
+                carry[3][2, nb >> 5] |= np.uint32(1 << (int(nb) & 31))
+    if quantized:
+        static = (adj, *quant_tables(vec), nav, ret)
+    return q, carry, static
+
+
+def _lane_active(c, mv):
+    bi, bd, be = c[:3]
+    return bool((((bi >= 0) & (be == 0) & torch.isfinite(bd)).any(1)
+                 & (c[8] < mv)).any())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["grid", "gauss"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("case", sorted(HOP_CASES))
+def test_cuda_beam_hop_shapes(cuda_device, kind, metric, quantized, case):
+    """Both fused hop kernels against their plain versions at the edges of
+    the redesign (copy paths, staging rounds, the kernel's limits,
+    duplicated neighbours, a hop with nothing fresh, B = 1 and B = 600):
+    bitwise on grid data, ids and counters exactly on Gaussian data; the
+    status word never reports an unsorted beam and reports an active lane
+    exactly when ``lane_active`` finds one in what the kernel left."""
+    from repro_torch.kernels.beam_hop import STATUS_ACTIVE, STATUS_UNSORTED
+
+    q, carry, static = _hop_case(case, kind, metric, quantized)
+    plain = tbh.beam_hop_fused_q_plain if quantized \
+        else tbh.beam_hop_fused_plain
+    kern = tbh.beam_hop_fused_q_cuda if quantized \
+        else tbh.beam_hop_fused_cuda
+    qd = _to(cuda_device, q)[0]
+    sd = _to(cuda_device, *static)
+    c = _to(cuda_device, *carry)
+    mv = carry[4].shape[1]
+    for step in range(10):
+        p = plain(qd, *c, *sd, metric=metric, h=4)
+        status = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+        k = kern(qd, *(x.clone() for x in c), *sd, metric=metric, h=4,
+                 status=status)
+        for i, (a, b) in enumerate(zip(p, k)):
+            _close(a, b, kind == "grid", f"step {step} field {i}")
+        word = int(status[0])
+        assert not word & STATUS_UNSORTED
+        assert bool(word & STATUS_ACTIVE) == _lane_active(k, mv)
+        c = p
+    assert int(c[8].sum()) > 0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_cuda_bound_beam_hop_matches_public(cuda_device, metric, quantized):
+    """``BoundBeamHop`` leaves the public launcher's carry, bit for bit,
+    over 10 super-steps; its ``active()`` is ``lane_active`` on that carry;
+    each call counts one launch; a carry it was not bound to is refused."""
+    q, carry, static = _hop_case("d40", "gauss", metric, quantized)
+    qd = _to(cuda_device, q)[0]
+    sd = _to(cuda_device, *static)
+    cp = _to(cuda_device, *carry)
+    cb = tuple(x.clone() for x in cp)
+    if quantized:
+        adj, codes, scales, qnorms, nav, ret = sd
+        bound = tbh.BoundBeamHop(qd, cb, adj, codes, qnorms, nav, ret,
+                                 metric=metric, h=4, scales=scales)
+        public, key = tbh.beam_hop_fused_q_cuda, "beam_hop_fused_q"
+    else:
+        bound = tbh.BoundBeamHop(qd, cb, *sd, metric=metric, h=4)
+        public, key = tbh.beam_hop_fused_cuda, "beam_hop_fused"
+    mv = carry[4].shape[1]
+    for step in range(10):
+        status = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+        public(qd, *cp, *sd, metric=metric, h=4, status=status)
+        before = tbh.LAUNCHES[key]
+        assert bound(cb) is cb
+        assert tbh.LAUNCHES[key] == before + 1
+        for i, (a, b) in enumerate(zip(cp, cb)):
+            _close(a, b, True, f"step {step} field {i}")
+        assert bound.active() == _lane_active(cb, mv)
+    with pytest.raises(ValueError, match="not the carry"):
+        bound(cp)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("quantized", [False, True])
+def test_cuda_bound_search_superstep_count(cuda_device, quantized,
+                                           monkeypatch):
+    """``batched_greedy_search`` on the cuda engine launches the fused
+    kernel once per super-step of the torch engine's loop on the same state
+    (no extra launch), and returns its result bit for bit on grid data."""
+    import dataclasses
+
+    from torch_parity import assert_search_equal, small_kw
+
+    from repro_torch import convert
+    from repro_torch.core import api as tapi
+    from repro_torch.core import backend as tbackend
+    from repro_torch.core.search_batched import batched_greedy_search
+    from repro_torch.core.types import ANNConfig, init_index_state
+
+    cfg = dataclasses.replace(
+        ANNConfig(**small_kw("l2", dim=16, n_cap=200), backend="cuda",
+                  quantized=quantized), hop_fused=4)
+    kind = "qgrid" if quantized else "grid"
+    data = _data(kind, 140, 16, 3)
+    st = init_index_state(cfg, 140, device=cuda_device)
+    st, _ = tapi.apply(st, cfg, tapi.insert_batch(np.arange(20), data[:20],
+                                                  device=cuda_device),
+                       sequential=True)
+    st, _ = tapi.apply(st, cfg, tapi.insert_batch(np.arange(20, 140),
+                                                  data[20:],
+                                                  device=cuda_device))
+    qs = _data(kind, 9, 16, 4)
+    key = "beam_hop_fused_q" if quantized else "beam_hop_fused"
+    before = tbh.LAUNCHES[key]
+    res_c = batched_greedy_search(st.graph, cfg, t(qs).to(cuda_device), k=5,
+                                  l=24)
+    launches = tbh.LAUNCHES[key] - before
+
+    steps = []
+    name = "beam_superstep_q" if quantized else "beam_superstep"
+    inner = getattr(tbackend.DistanceBackend, name)
+
+    def counted(self, *a, **kw):
+        steps.append(1)
+        return inner(self, *a, **kw)
+
+    monkeypatch.setattr(tbackend.TorchBackend, name, counted)
+    host = convert.index_state_from_numpy(
+        convert.index_state_to_numpy(st), "cpu")
+    res_t = batched_greedy_search(host.graph,
+                                  dataclasses.replace(cfg, backend="torch"),
+                                  t(qs), k=5, l=24)
+    assert launches == len(steps) > 1
+    assert_search_equal(res_t, res_c)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("quantized", [False, True])
+def test_cuda_unsorted_beam_is_refused(cuda_device, quantized):
+    """A beam that is not sorted by distance sets ``STATUS_UNSORTED`` and
+    leaves its lane untouched (the other lanes hop as the plain version
+    does); without a status word the public launcher raises, and so does
+    ``BoundBeamHop.active()``."""
+    from repro_torch.kernels.beam_hop import STATUS_UNSORTED
+
+    q, carry, static = _hop_case("d40", "grid", "l2", quantized)
+    plain = tbh.beam_hop_fused_q_plain if quantized \
+        else tbh.beam_hop_fused_plain
+    kern = tbh.beam_hop_fused_q_cuda if quantized \
+        else tbh.beam_hop_fused_cuda
+    qd = _to(cuda_device, q)[0]
+    sd = _to(cuda_device, *static)
+    c = plain(qd, *_to(cuda_device, *carry), *sd, h=2)
+    c[1][3, 1] = c[1][3, 0] - 1.0   # lane 3: beam_dists out of order
+    status = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    k = kern(qd, *(x.clone() for x in c), *sd, status=status)
+    p = plain(qd, *c, *sd)
+    assert int(status[0]) & STATUS_UNSORTED
+    others = torch.arange(c[0].shape[0], device=cuda_device) != 3
+    for i, (a, b, before) in enumerate(zip(k, p, c)):
+        _close(before[3], a[3], True, f"lane 3 field {i}")
+        _close(b[others], a[others], True, f"other lanes field {i}")
+    with pytest.raises(RuntimeError, match="not sorted"):
+        kern(qd, *(x.clone() for x in c), *sd)
+    cb = tuple(x.clone() for x in c)
+    if quantized:
+        adj, codes, scales, qnorms, nav, ret = sd
+        bound = tbh.BoundBeamHop(qd, cb, adj, codes, qnorms, nav, ret,
+                                 scales=scales)
+    else:
+        bound = tbh.BoundBeamHop(qd, cb, *sd)
+    bound(cb)
+    with pytest.raises(RuntimeError, match="not sorted"):
+        bound.active()

@@ -1,8 +1,8 @@
 """Rules of the port: it imports neither JAX nor the JAX package, it imports
 without JAX installed, ``auto`` resolves by the state's device, the ``cuda``
-engine refuses CPU tensors (the int8 tier's kernels and the serial
-search's bound launcher too), and the quantized state has the reference's
-leaves."""
+engine refuses CPU tensors (the int8 tier's kernels and the bound launchers
+of the serial and the batched search too), and the quantized state has the
+reference's leaves."""
 import ast
 import subprocess
 import sys
@@ -139,6 +139,126 @@ def test_bound_gather_refuses_at_binding(case, monkeypatch):
         eng = tbackend.resolve_backend(cfg, "cpu")
         with pytest.raises(ValueError, match=pattern):
             eng.bind_dists_to_ids(state, cfg, args[0])
+
+
+def _hop_bind_case(case):
+    """Arguments of ``BoundBeamHop`` that it must refuse, and what it raises
+    (the error type and a pattern of its message)."""
+    b, l, r, d, n_cap, mv = 2, 8, 4, 8, 40, 12
+    w = (n_cap + 31) // 32
+
+    def i32(*shape):
+        return torch.zeros(shape, dtype=torch.int32)
+
+    q = torch.zeros((b, d))
+    carry = [i32(b, l), torch.zeros((b, l)), i32(b, l), i32(b, w),
+             i32(b, mv), torch.zeros((b, mv)), i32(b), i32(b), i32(b)]
+    adj, rows, norms = i32(n_cap, r), torch.zeros((n_cap, d)), \
+        torch.zeros(n_cap)
+    kw = {}
+    err, pattern = ValueError, "inconsistent"
+    if case == "cpu_tensors":
+        pattern = "one CUDA device"
+    elif case == "mixed_devices":
+        adj, pattern = adj.to("meta"), "cpu.*meta"
+    elif case == "non_contiguous_adj":
+        adj, pattern = i32(r, n_cap).T, "contiguous"
+    elif case == "beam_ids_dtype":
+        carry[0], err, pattern = carry[0].long(), TypeError, "beam_ids must"
+    elif case == "beam_dists_dtype":
+        carry[1], err, pattern = carry[1].double(), TypeError, \
+            "beam_dists must"
+    elif case == "beam_exp_bool":
+        carry[2], err, pattern = carry[2].bool(), TypeError, "beam_exp must"
+    elif case == "rows_dtype":
+        rows, err, pattern = rows.half(), TypeError, "rows must"
+    elif case == "codes_not_int8":
+        kw["scales"] = torch.zeros(n_cap)
+        err, pattern = TypeError, "rows must"
+    elif case == "norms_dtype":
+        norms, err, pattern = norms.half(), TypeError, "norms must"
+    elif case == "seen_width":
+        carry[3] = i32(b, w - 1)
+    elif case == "query_width":
+        q = torch.zeros((b, d + 1))
+    elif case == "visited_width":
+        carry[5] = torch.zeros((b, mv + 1))
+    elif case == "counter_shape":
+        carry[7] = i32(b + 1)
+    elif case == "beam_over_256":
+        l = 257
+        carry[:3] = [i32(b, l), torch.zeros((b, l)), i32(b, l)]
+        pattern = "l <= 256"
+    elif case == "degree_over_128":
+        adj, pattern = i32(n_cap, 129), "r <= 128"
+    elif case == "dim_over_8192":
+        q, rows, pattern = torch.zeros((b, 8193)), \
+            torch.zeros((n_cap, 8193)), "dim <= 8192"
+    elif case == "misaligned_codes":
+        rows = torch.zeros(n_cap * d + 1, dtype=torch.int8)[1:].view(n_cap, d)
+        kw["scales"] = torch.zeros(n_cap)
+        pattern = "4-byte aligned"
+    else:
+        raise AssertionError(case)
+    return (q, tuple(carry), adj, rows, norms, i32(w), i32(w)), kw, err, \
+        pattern
+
+
+HOP_BIND_CASES = ["cpu_tensors", "mixed_devices", "non_contiguous_adj",
+                  "beam_ids_dtype", "beam_dists_dtype", "beam_exp_bool",
+                  "rows_dtype", "codes_not_int8", "norms_dtype",
+                  "seen_width", "query_width", "visited_width",
+                  "counter_shape", "beam_over_256", "degree_over_128",
+                  "dim_over_8192", "misaligned_codes"]
+
+
+@pytest.mark.parametrize("case", HOP_BIND_CASES)
+def test_bound_beam_hop_refuses_at_binding(case, monkeypatch):
+    """The batched search's bound super-step launcher runs its checks when
+    it is bound and raises; it never takes the plain version instead, and
+    the public launcher refuses the same arguments."""
+    def no_plain(*a, **kw):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(beam_hop, "beam_hop_fused_plain", no_plain)
+    monkeypatch.setattr(beam_hop, "beam_hop_fused_q_plain", no_plain)
+    args, kw, err, pattern = _hop_bind_case(case)
+    before = dict(beam_hop.LAUNCHES)
+    with pytest.raises(err, match=pattern):
+        beam_hop.BoundBeamHop(*args, **kw)
+    q, carry, adj, rows, norms, nav, ret = args
+    with pytest.raises(err, match=pattern):
+        if "scales" in kw:
+            beam_hop.beam_hop_fused_q_cuda(q, *carry, adj, rows,
+                                           kw["scales"], norms, nav, ret)
+        else:
+            beam_hop.beam_hop_fused_cuda(q, *carry, adj, rows, norms, nav,
+                                         ret)
+    assert beam_hop.LAUNCHES == before
+    if case == "cpu_tensors":
+        # the cuda engine binds the same launcher for batched_greedy_search
+        for quantized in (False, True):
+            cfg = ANNConfig(dim=8, n_cap=40, r=4, quantized=quantized,
+                            backend="cuda")
+            state = init_state(cfg, "cpu")
+            eng = tbackend.resolve_backend(cfg, "cpu")
+            with pytest.raises(ValueError, match=pattern):
+                eng.bind_beam_superstep(state, cfg, q, carry, h=4,
+                                        quantized=quantized)
+
+
+@pytest.mark.parametrize("name", ["beam_superstep", "beam_superstep_q"])
+def test_cuda_engine_superstep_is_bound_only(name):
+    """The cuda engine's super-step is the fused kernel bound once per
+    search: its unbound super-step raises and names the binding, and never
+    runs the eager hop body instead."""
+    cfg = ANNConfig(dim=8, n_cap=40, r=4, quantized=name.endswith("_q"),
+                    backend="cuda")
+    eng = tbackend.resolve_backend(cfg, "cpu")
+    with pytest.raises(NotImplementedError, match="bind_beam_superstep"):
+        getattr(eng, name)(init_state(cfg, "cpu"), cfg,
+                           torch.zeros((1, 8)), None, h=4, l=8,
+                           max_visits=12)
 
 
 def test_wrappers_take_plain_version_on_cpu_only():
