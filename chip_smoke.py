@@ -11,15 +11,16 @@ Phases, any failure exits non-zero:
      their plain PyTorch versions, bitwise on grid-valued data (entries
      k/16, where every sum is exact in float32) and to rtol 1e-5 on
      Gaussian data; CUDA-event times of the wrapper call (the serial
-     gather and the fused hops through the launchers bound once per
-     search, their public wrappers beside them; the batched gather in
-     turns with its yardstick), the plain version, a one-call PyTorch
-     yardstick where one exists, the kernel's device-only time from a
-     ``torch.profiler`` trace, and the bound from the bytes / flops the
-     inputs need; where the gathers' host time goes, step by step; what
-     the batched search's loop pays per super-step; the fused hops'
-     status word against ``lane_active``; no spills in the redesigned
-     kernels;
+     gather, the int8 gather and the fused hops through the launchers
+     bound once per search, their public wrappers beside them; the batched
+     gathers in turns with their yardsticks; the int8 gather at a hop's
+     (B, R) tile and at the start column, K = 1), the plain version, a
+     one-call PyTorch yardstick where one exists, the kernel's device-only
+     time from a ``torch.profiler`` trace, and the bound from the bytes /
+     flops the inputs need; where the gathers' host time goes, step by
+     step; what the batched search's loop pays per super-step; the fused
+     hops' status word against ``lane_active``; no spills in the
+     redesigned kernels;
   3. the f32 main path end to end: ``ANNConfig(dim=128, n_cap=1_000_000)``
      on the card, a serial bootstrap, batched insert windows, Recall@10,
      in-place deletes with the Alg-6 sweep, reinserts, Recall@10 again, a
@@ -28,7 +29,10 @@ Phases, any failure exits non-zero:
      n_cap=1_000_000, quantized=True), batch_updates=True)`` replaying a
      sliding-window runbook through ``run_runbook``; Recall@10 per eval, no
      deleted id returned, the returned distances bitwise equal to the f32
-     rescore of the returned slots, both int8 kernels launched;
+     rescore of the returned slots, both int8 kernels launched; then the
+     same index's query-only phase at ``hop_fused = 0`` (the int8 gather
+     on every hop) and at H = 4, batch by batch in turns: QPS and launches
+     per batch of each, every result identical;
   4. short grid-data streams at test size: the f32 ``apply`` stream with
      backend "cuda" and "torch", and a quantized ``StreamingIndex`` stream
      that grows through two capacity buckets with backend "cuda" (hop
@@ -86,11 +90,12 @@ DEVICE_KERNELS = {
     "gather_distance": ("gather_one_kernel",),
     "beam_hop_fused": ("beam_hop_kernel",),
     "topk_score": ("topk_partial_kernel", "topk_merge_kernel"),
-    "gather_distance_batched_q": ("quant_gather_kernel",),
+    "gather_distance_batched_q": ("quant_gather_block_kernel",),
     "beam_hop_fused_q": ("beam_hop_kernel",),
 }
 # kernels redesigned for Hopper whose ptxas report must show no spills
-NO_SPILL = ("topk_partial_kernel", "gather_one_kernel", "beam_hop_kernel")
+NO_SPILL = ("topk_partial_kernel", "gather_one_kernel", "beam_hop_kernel",
+            "quant_gather_block_kernel")
 # the kernels each path must launch
 F32_PATH = ("gather_distance_batched", "gather_distance", "beam_hop_fused",
             "topk_score")
@@ -164,25 +169,33 @@ def interleaved_ms(fns, reps):
 def device_ms(fn, reps, names, setup=None):
     """Mean device-only ms per ``fn(x)`` call of the CUDA kernels whose names
     contain one of ``names``, from a ``torch.profiler`` trace of ``reps``
-    calls (copies made by ``setup`` are not counted)."""
+    calls (copies made by ``setup`` are not counted).  A trace that shows
+    none of those kernels is taken again, three traces in all (one trace of
+    a whole run came back without them, where the same trace alone did
+    not)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn(setup() if setup else None)
     torch.cuda.synchronize()
-    xs = [setup() if setup else None for _ in range(reps)]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for x in xs:
-            fn(x)
-        torch.cuda.synchronize()
-    us = 0.0
-    for ev in prof.key_averages():
-        if any(nm in ev.key for nm in names):
-            us += getattr(ev, "self_device_time_total", None) or \
-                getattr(ev, "self_cuda_time_total", 0.0)
-    check(us > 0, f"the profiler saw no device time for {names}")
-    return us / reps / 1e3
+    traces = 3
+    for _ in range(traces):
+        xs = [setup() if setup else None for _ in range(reps)]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for x in xs:
+                fn(x)
+            torch.cuda.synchronize()
+        us = 0.0
+        for ev in prof.key_averages():
+            if any(nm in ev.key for nm in names):
+                us += getattr(ev, "self_device_time_total", None) or \
+                    getattr(ev, "self_cuda_time_total", 0.0)
+        if us > 0:
+            return us / reps / 1e3
+    seen = sorted({ev.key[:60] for ev in prof.key_averages()})
+    raise PhaseError(f"the profiler saw no device time for {names} in "
+                     f"{traces} traces; the last one holds {seen}")
 
 
 def gather_host_split(ids, q, vec, norms, reps=2000):
@@ -451,6 +464,63 @@ def loop_step_ms(bound, reset, kern, qb, static, h, c0, mv, reps=20):
     return res
 
 
+def quant_gather_parity(ids, qb, qtab, grid, yardstick):
+    """Kernel 5 (bound launcher and public wrapper) against its plain
+    version at (B, R) and (B, 1): bitwise on grid data, else to rtol 1e-5;
+    the bound launcher bit for bit the public one.  On Gaussian data also
+    the times: the bound call, the public wrapper and the yardstick
+    (medians of 200 in turns), the device time and the bound."""
+    import torch
+
+    from repro_torch.kernels import quant_gather as qg
+
+    b, d = qb.shape
+    bound = qg.BoundQuantGather(qb, *qtab)
+    out = {}
+    for name, tile in (("gather_distance_batched_q", ids),
+                       ("gather_distance_batched_q[K=1]",
+                        ids[:, :1].contiguous())):
+        a = bound(tile)
+        pub = qg.gather_distance_batched_q_cuda(tile, qb, *qtab)
+        p = qg.gather_distance_batched_q_plain(tile, qb, *qtab)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(p)
+        check(torch.equal(torch.isfinite(a), fin), f"{name}: inf mask")
+        check(torch.equal(a, pub), f"{name}: bound launcher differs from "
+              f"the public wrapper")
+        err = float((a[fin] - p[fin]).abs().max()) if fin.any() else 0.0
+        if grid:
+            check(torch.equal(a, p), f"{name}: grid data not bitwise")
+        else:
+            check(torch.allclose(a[fin], p[fin], rtol=1e-5, atol=1e-4),
+                  f"{name}: gaussian max err {err}")
+        out[name] = {"max_abs_err": err, "shape": list(tile.shape)}
+        if grid:
+            continue
+        nvalid = int((tile >= 0).sum())
+        # gathered rows with their scale and qnorm, ids, outputs, queries
+        by = nvalid * (d + 8) + tile.numel() * 8 + b * d * 4
+        bms, bby = bound_ms(by, nvalid * 2 * d)
+        i2 = tile.clamp(min=0).long()
+        q2 = qb.reshape(b, d, 1)
+        ms, public_ms, lms = interleaved_ms(
+            [lambda: bound(tile),
+             lambda: qg.gather_distance_batched_q_cuda(tile, qb, *qtab),
+             lambda: yardstick(i2, q2)], 200)
+        dms = device_ms(lambda _: bound(tile), 50,
+                        DEVICE_KERNELS["gather_distance_batched_q"])
+        pms = cuda_ms(lambda _: qg.gather_distance_batched_q_plain(
+            tile, qb, *qtab), 20)
+        out[name].update(
+            ms=ms, public_ms=public_ms, device_ms=dms, plain_ms=pms,
+            library_ms=lms, bound_ms=bms, bound_by=bby,
+            launch_shape=list(qg.launch_shape(*tile.shape, d)),
+            timing="interleaved medians, 200 each (bound, public, "
+                   "yardstick)",
+            library_call="torch.bmm(codes[ids].float(), q) * scale[ids]")
+    return out
+
+
 def kernel_phase(seed, n_cap=1_000_000, d=128, r=64, l=128, b=512, h=4,
                  q_topk=1024, k=10):
     import torch
@@ -514,10 +584,6 @@ def kernel_phase(seed, n_cap=1_000_000, d=128, r=64, l=128, b=512, h=4,
              gd.gather_distance_plain,
              lambda i, *_, metric: bound["gather_distance[no norms]"](i),
              4 * d, None),
-            ("gather_distance_batched_q", (ids, qb, *qtab),
-             qg.gather_distance_batched_q_plain,
-             qg.gather_distance_batched_q_cuda, d + 8,
-             ("torch.bmm(codes[ids].float(), q) * scale[ids]", int8_lib)),
         ):
             a = kern(*args, metric="l2")
             p = plain(*args, metric="l2")
@@ -569,6 +635,12 @@ def kernel_phase(seed, n_cap=1_000_000, d=128, r=64, l=128, b=512, h=4,
                     res[name]["public_ms"] = cuda_ms(
                         lambda _: gd.gather_distance_cuda(*args), 50)
                     res[name]["host_split_us"] = gather_host_split(*args)
+
+        # kernel 5 at the two shapes the quantized search gives it: a hop's
+        # (B, R) tile (every hop at H = 0) and the start column (K = 1, once
+        # per batched search), through the launcher bound once per search,
+        # with the public wrapper and the yardstick in turns
+        res.update(quant_gather_parity(ids, qb, qtab, grid, int8_lib))
 
         # ---- kernels 3 and 6: fused beam super-step, f32 and int8 ---------
         adj = torch.randint(0, n_cap, (n_cap, r), generator=gen,
@@ -863,6 +935,60 @@ def quant_path(seed, n, t_max=16, eval_every=4, qb=256, n_qps=1024):
     for name in QUANT_PATH:
         check(out["launches"][name] > 0,
               f"kernel {name} never launched on the quantized path")
+    out["query_by_hops"] = quant_query_by_hops(idx, qs, qb)
+    return out
+
+
+def quant_query_by_hops(idx, qs, qb):
+    """The quantized index's query-only phase at ``hop_fused = 0`` (kernel 5
+    carries every hop, through the launcher bound once per search) and at
+    the default H = 4 (kernel 6), batch by batch in turns on the same
+    queries: QPS and launches per query batch of each, and every returned
+    id, distance, visited list and counter identical."""
+    import torch
+
+    from repro_torch.core import search_index
+    from repro_torch.kernels import ops
+
+    cfgs = {"H=0": dataclasses.replace(idx.cfg, hop_fused=0),
+            "H=4": idx.cfg}
+    q = torch.from_numpy(qs).cuda()
+    for cfg in cfgs.values():
+        search_index(idx.istate, cfg, q[:qb], k=10)
+    secs = dict.fromkeys(cfgs, 0.0)
+    launches = {key: dict.fromkeys(ops.launch_counts(), 0) for key in cfgs}
+    n_batches = 0
+    for lo in range(0, q.shape[0], qb):
+        outs = {}
+        for key, cfg in cfgs.items():
+            before = ops.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[key] = search_index(idx.istate, cfg, q[lo:lo + qb], k=10)
+            torch.cuda.synchronize()
+            secs[key] += time.perf_counter() - t0
+            for name, c in ops.launch_counts().items():
+                launches[key][name] += c - before[name]
+        (e0, d0, r0), (e4, d4, r4) = outs["H=0"], outs["H=4"]
+        bad = [f for f, x, y in zip(r0._fields, r0, r4)
+               if not torch.equal(x, y)]
+        check(torch.equal(e0, e4) and torch.equal(d0, d4) and not bad,
+              f"quantized query path: H = 0 and H = 4 differ in {bad}")
+        n_batches += 1
+    out = {}
+    for key in cfgs:
+        out[key] = {
+            "qps": q.shape[0] / secs[key], "query_batch": qb,
+            "batches": n_batches,
+            "per_batch": {name: c / n_batches
+                          for name, c in launches[key].items() if c}}
+    per0, per4 = out["H=0"]["per_batch"], out["H=4"]["per_batch"]
+    check(per0.get("beam_hop_fused_q", 0) == 0
+          and per0.get("gather_distance_batched_q", 0) > 1,
+          f"quantized query path at H = 0: launches {out['H=0']}")
+    check(per4.get("gather_distance_batched_q", 0) == 1,
+          f"quantized query path at H = 4: launches {out['H=4']}")
+    log(f"quantized query path by H: {out}")
     return out
 
 
@@ -1082,7 +1208,8 @@ def main(argv=None):
                                  for p in ("main", "quant")},
             "max_abs_err": g.get("max_abs_err"),
             "grid_bitwise": name in grid,
-            "ms": g.get("ms"), "device_ms": g.get("device_ms"),
+            "ms": g.get("ms"), "public_ms": g.get("public_ms"),
+            "device_ms": g.get("device_ms"),
             "plain_ms": g.get("plain_ms"), "bound_ms": g.get("bound_ms"),
             "bound_by": g.get("bound_by"), "library_ms": g.get("library_ms"),
         })

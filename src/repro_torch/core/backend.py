@@ -12,9 +12,10 @@ slots", and goes through a ``DistanceBackend``.  Three engines:
                 super-step of the batched one (each bound once per
                 search, ``bind_dists_to_ids`` / ``bind_beam_superstep``),
                 ``topk_score`` for the exact scan, and their int8 twins
-                ``gather_distance_batched_q`` / ``beam_hop_fused_q`` for the
-                quantized tier.  It raises on tensors that are not on a
-                CUDA device.
+                ``gather_distance_batched_q`` (bound once per batched
+                search, ``bind_dists_to_ids_batched_q``) /
+                ``beam_hop_fused_q`` for the quantized tier.  It raises on
+                tensors that are not on a CUDA device.
 
 ``ANNConfig.backend = "auto"`` resolves by the device of the state's
 tensors: ``cuda`` for CUDA tensors, ``torch`` for CPU tensors.
@@ -100,6 +101,14 @@ class DistanceBackend:
         from .quant import quant_dists_to_ids_batched
 
         return quant_dists_to_ids_batched(state, cfg, queries, ids)
+
+    def bind_dists_to_ids_batched_q(self, state: GraphState, cfg: ANNConfig,
+                                    queries):
+        """``dists_to_ids_batched_q`` with ``state`` and ``queries`` fixed,
+        for the start distance and the per-hop tiles of one batched search:
+        a callable ``ids -> f32[B, M]``."""
+        return lambda ids: self.dists_to_ids_batched_q(state, cfg, queries,
+                                                       ids)
 
     def beam_superstep_q(self, state: GraphState, cfg: ANNConfig, queries,
                          carry, *, h: int, l: int, max_visits: int):
@@ -315,6 +324,17 @@ class CudaBackend(TorchBackend):
             ids.to(torch.int32), queries, q.codes, q.scale, q.qnorms,
             metric=cfg.metric,
         )
+
+    def bind_dists_to_ids_batched_q(self, state, cfg, queries):
+        """The int8 gather kernel's launcher (``BoundQuantGather``), checked
+        once and bound to the code table, scales, qnorms, queries and
+        stream; each call's ids are i32[B, M] on the card (the start column,
+        or a hop's masked adjacency tile)."""
+        from ..kernels.quant_gather import BoundQuantGather
+
+        q = state.quant
+        return BoundQuantGather(queries, q.codes, q.scale, q.qnorms,
+                                metric=cfg.metric)
 
     def brute_force_topk(self, state, cfg, queries, *, k):
         from ..kernels.topk_score import topk_score_cuda

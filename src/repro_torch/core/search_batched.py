@@ -12,7 +12,10 @@ Python loop with one host read of ``any(active)`` per super-step.  The
 are packed once (the state cannot change mid-search), the carry keeps an
 int32 ``beam_exp`` and is updated in place, and each super-step is one
 launch plus one host read of the status word in which the kernel reports
-whether a lane is still active (and refuses an unsorted beam).
+whether a lane is still active (and refuses an unsorted beam).  On the
+quantized tier it also binds the int8 gather kernel once per search
+(``DistanceBackend.bind_dists_to_ids_batched_q``): the start distance, and
+every hop's (B, R) tile when no fused super-step runs (H = 0).
 """
 from __future__ import annotations
 
@@ -187,7 +190,8 @@ def batched_greedy_search(state: GraphState, cfg: ANNConfig,
 
     When ``cfg.quantized`` is set and the state carries a quant store, the
     hops traverse on int8 traversal-tier distances
-    (``dists_to_ids_batched_q``), the surviving beam is rescored exactly
+    (``dists_to_ids_batched_q``, bound once per search through
+    ``bind_dists_to_ids_batched_q``), the surviving beam is rescored exactly
     against the f32 table (adding its returnable entries to ``n_comps``),
     and ``topk_dists`` are recomputed on exactly the returned ids."""
     if max_visits is None:
@@ -196,9 +200,16 @@ def batched_greedy_search(state: GraphState, cfg: ANNConfig,
     backend = resolve_backend(cfg, dev)
     # an explicit distance_fn override wins over the quantized tier
     use_q = cfg.quantized and state.quant is not None and distance_fn is None
-    dist_fn = distance_fn or (backend.dists_to_ids_batched_q if use_q
-                              else backend.dists_to_ids_batched)
     queries = queries.to(torch.float32).contiguous()
+    if use_q:
+        # the int8 distances bound once per search: the start's, and every
+        # hop's when no fused super-step runs (H = 0)
+        bound_q = backend.bind_dists_to_ids_batched_q(state, cfg, queries)
+
+        def dist_fn(_state, _cfg, _queries, ids):
+            return bound_q(ids)
+    else:
+        dist_fn = distance_fn or backend.dists_to_ids_batched
 
     b = queries.shape[0]
     starts = state.start.reshape(1).expand(b).to(torch.int32)

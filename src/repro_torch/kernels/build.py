@@ -42,7 +42,7 @@ SIGNATURES = {
         ("topk_n_chunks", [_I] * 3),
     ],
     "quant_gather": [
-        ("quant_gather_launch", [_P] * 6 + [_I] * 5 + [_P]),
+        ("quant_gather_launch", [_P] * 6 + [_I] * 8 + [_P]),
     ],
 }
 

@@ -390,20 +390,87 @@ def test_cuda_beam_hop(cuda_device, kind, metric, h):
         c = p
 
 
+def _q_ids(rng, b, k):
+    """A (b, k) int8-gather id tile over ``N_CAP`` rows: INVALID ids, and
+    ids >= N_CAP (the kernel reads row N_CAP - 1 for those)."""
+    ids = _ids(rng, b, k, N_CAP)
+    past = rng.random((b, k)) < 0.05
+    ids[past] = N_CAP + rng.integers(0, 5, size=int(past.sum()))
+    return ids
+
+
+# K = 1 packs several queries into a block (the search's start distance),
+# 7 leaves a warp's rows part-used, 64 is a hop's tile, 65 takes a second
+# round of rows; D = 32 and 100 use fewer than 32 lanes' chunks, 130 takes
+# the byte loads, 2,048 stages 8 KB of query a block.
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("kind", ["qgrid", "gauss"])
 @pytest.mark.parametrize("metric", ["l2", "ip"])
-@pytest.mark.parametrize("dim", [128, 130])  # char4 and byte loads
-def test_cuda_quant_gather(cuda_device, kind, metric, dim):
-    rng = np.random.default_rng(dim)
+@pytest.mark.parametrize("dim", [32, 100, 128, 130, 2048])
+@pytest.mark.parametrize("k", [1, 7, 64, 65])
+def test_cuda_quant_gather(cuda_device, kind, metric, dim, k):
+    rng = np.random.default_rng(dim + k)
     vec = _data(kind, N_CAP, dim, 1, metric)
-    q = _data(kind, 7, dim, 2, metric)
-    ids = _ids(rng, 7, 64, N_CAP)
+    q = _data(kind, 9, dim, 2, metric)
+    ids = _q_ids(rng, 9, k)
     args = _to(cuda_device, ids, q, *quant_tables(vec))
     a = tqg.gather_distance_batched_q_cuda(*args, metric=metric)
     p = tqg.gather_distance_batched_q_plain(*args, metric=metric)
     _close(p, a, kind == "qgrid", "quantized kernel vs plain")
     assert np.isinf(n(a)[ids < 0]).all()
+    assert np.isfinite(n(a)[ids >= 0]).all()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("k", [1, 64])
+def test_cuda_bound_quant_gather_matches_public(cuda_device, metric, k):
+    """The launcher bound once per batched search gives the public
+    wrapper's bits, counts one launch a call, returns a fresh tensor each
+    call and refuses ids of another batch."""
+    rng = np.random.default_rng(14)
+    vec = _data("gauss", N_CAP, 128, 1, metric)
+    q = _data("gauss", 9, 128, 2, metric)
+    ids_d, q_d, *tab = _to(cuda_device, _q_ids(rng, 18, k), q,
+                           *quant_tables(vec))
+    bound = tqg.BoundQuantGather(q_d, *tab, metric=metric)
+    before = tqg.LAUNCHES["gather_distance_batched_q"]
+    a = bound(ids_d[:9].contiguous())
+    a_copy = a.clone()
+    b = bound(ids_d[9:].contiguous())
+    torch.cuda.synchronize()
+    assert tqg.LAUNCHES["gather_distance_batched_q"] == before + 2
+    assert a.data_ptr() != b.data_ptr()
+    _close(a_copy, a, True, "first result after the second call")
+    for got, rows in ((a, ids_d[:9]), (b, ids_d[9:])):
+        pub = tqg.gather_distance_batched_q_cuda(rows, q_d, *tab,
+                                                 metric=metric)
+        _close(pub, got, True, "bound vs public")
+    with pytest.raises(ValueError, match="id rows"):
+        bound(ids_d)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["qgrid", "gauss"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_cuda_quant_gather_matches_beam_hop_q(cuda_device, kind, metric):
+    """The distances one fused int8 hop (kernel 6) writes into the beam are
+    the int8 gather kernel's (kernel 5) for the same (query, row) pairs,
+    bit for bit: both sum a row with ``warp_dot_i8``."""
+    q, carry, static = _beam_inputs(kind, metric, b=6, l=32, r=16, dim=40)
+    adj, vec, _, nav, ret = static
+    qd = _to(cuda_device, q)[0]
+    sd = _to(cuda_device, adj, *quant_tables(vec), nav, ret)
+    c = _to(cuda_device, *carry)
+    out = tbh.beam_hop_fused_q_cuda(qd, *(x.clone() for x in c), *sd,
+                                    metric=metric, h=1)
+    ids, dists = out[0], out[1]
+    # the start's distance came with the carry, not from kernel 6
+    keep = (ids >= 0) & (ids != c[0][:, :1])
+    assert int(keep.sum()) > 0
+    bound = tqg.BoundQuantGather(qd, *sd[1:4], metric=metric)
+    got = bound(torch.where(keep, ids, torch.full_like(ids, -1)))
+    _close(dists[keep], got[keep], True, "fused int8 hop vs int8 gather")
 
 
 @pytest.mark.requires_cuda

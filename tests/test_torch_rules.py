@@ -1,7 +1,9 @@
 """Rules of the port: it imports neither JAX nor the JAX package, it imports
 without JAX installed, ``auto`` resolves by the state's device, the ``cuda``
 engine refuses CPU tensors (the int8 tier's kernels and the bound launchers
-of the serial and the batched search too), and the quantized state has the
+of the serial and the batched search too), the quantized batched search
+takes its int8 distances from the launcher bound once per search, the int8
+gather's launch shape serves every id once, and the quantized state has the
 reference's leaves."""
 import ast
 import subprocess
@@ -245,6 +247,179 @@ def test_bound_beam_hop_refuses_at_binding(case, monkeypatch):
             with pytest.raises(ValueError, match=pattern):
                 eng.bind_beam_superstep(state, cfg, q, carry, h=4,
                                         quantized=quantized)
+
+
+def _q_bind_case(case):
+    """Arguments of ``BoundQuantGather`` that it must refuse, and what it
+    raises (the error type and a pattern of its message)."""
+    q = torch.zeros((2, 8))
+    codes = torch.zeros((40, 8), dtype=torch.int8)
+    scales, qnorms = torch.zeros(40), torch.zeros(40)
+    err, pattern = ValueError, "inconsistent shapes"
+    if case == "cpu_tensors":
+        pattern = "one CUDA device"
+    elif case == "mixed_devices":
+        scales, pattern = scales.to("meta"), "cpu.*meta"
+    elif case == "non_contiguous_table":
+        codes = torch.zeros((8, 40), dtype=torch.int8).T
+        pattern = "contiguous"
+    elif case == "codes_dtype":
+        codes, err, pattern = codes.float(), TypeError, "codes must be"
+    elif case == "queries_dtype":
+        q, err, pattern = q.double(), TypeError, "queries must be"
+    elif case == "scales_dtype":
+        scales, err, pattern = scales.half(), TypeError, "scales must be"
+    elif case == "qnorms_dtype":
+        qnorms, err, pattern = qnorms.long(), TypeError, "qnorms must be"
+    elif case == "query_width":
+        q = torch.zeros((2, 9))
+    elif case == "scales_length":
+        scales = torch.zeros(39)
+    elif case == "misaligned_codes":
+        codes = torch.zeros(40 * 8 + 1, dtype=torch.int8)[1:].view(40, 8)
+        pattern = "4-byte aligned"
+    else:
+        raise AssertionError(case)
+    return (q, codes, scales, qnorms), err, pattern
+
+
+@pytest.mark.parametrize("case", ["cpu_tensors", "mixed_devices",
+                                  "non_contiguous_table", "codes_dtype",
+                                  "queries_dtype", "scales_dtype",
+                                  "qnorms_dtype", "query_width",
+                                  "scales_length", "misaligned_codes"])
+def test_bound_quant_gather_refuses_at_binding(case, monkeypatch):
+    """The batched search's bound int8 gather launcher runs its checks when
+    it is bound and raises; it never takes the plain version instead, and
+    the public launcher refuses the same tables."""
+    def no_plain(*a, **kw):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(quant_gather, "gather_distance_batched_q_plain",
+                        no_plain)
+    args, err, pattern = _q_bind_case(case)
+    before = dict(quant_gather.LAUNCHES)
+    with pytest.raises(err, match=pattern):
+        quant_gather.BoundQuantGather(*args)
+    ids = torch.zeros((args[0].shape[0], 3), dtype=torch.int32)
+    with pytest.raises(err, match=pattern):
+        quant_gather.gather_distance_batched_q_cuda(ids, *args)
+    assert quant_gather.LAUNCHES == before
+    if case == "cpu_tensors":
+        # the cuda engine binds the same launcher for batched_greedy_search
+        cfg = ANNConfig(dim=8, n_cap=40, r=4, quantized=True,
+                        backend="cuda")
+        state = init_state(cfg, "cpu")
+        eng = tbackend.resolve_backend(cfg, "cpu")
+        with pytest.raises(ValueError, match=pattern):
+            eng.bind_dists_to_ids_batched_q(state, cfg, args[0])
+
+
+@pytest.mark.parametrize("hops", [0, 4])
+def test_cuda_engine_quantized_search_binds_int8_gather(hops, monkeypatch):
+    """The cuda engine's quantized batched search binds the int8 gather once
+    (``bind_dists_to_ids_batched_q``) and takes from the bound launcher the
+    start distance and, at H = 0, every hop's tile; the unbound
+    ``dists_to_ids_batched_q`` is never called.  The kernels are stood in
+    for by the torch engine's math on the CPU, and the search returns the
+    torch engine's result."""
+    import dataclasses
+
+    from torch_parity import assert_search_equal, qgrid_data, small_kw
+
+    from repro_torch.core import api as tapi
+    from repro_torch.core.search_batched import batched_greedy_search
+    from repro_torch.core.types import init_index_state
+
+    torch_eng = tbackend.get_backend("torch")
+    binds, calls = [], []
+
+    def bind(self, state, cfg, queries):
+        binds.append(queries.shape)
+
+        def call(ids):
+            assert ids.dtype == torch.int32 and ids.is_contiguous()
+            calls.append(tuple(ids.shape))
+            return torch_eng.dists_to_ids_batched_q(state, cfg, queries, ids)
+        return call
+
+    def unbound(*a, **kw):
+        raise AssertionError("the unbound int8 gather was called")
+
+    monkeypatch.setattr(tbackend.CudaBackend, "bind_dists_to_ids_batched_q",
+                        bind)
+    monkeypatch.setattr(tbackend.CudaBackend, "dists_to_ids_batched_q",
+                        unbound)
+    monkeypatch.setattr(tbackend.CudaBackend, "dists_to_ids_batched",
+                        tbackend.TorchBackend.dists_to_ids_batched)
+    # H = 4: the fused super-step stood in for by the torch engine's
+    monkeypatch.setattr(
+        tbackend.CudaBackend, "bind_beam_superstep",
+        lambda self, *a, **kw: torch_eng.bind_beam_superstep(*a, **kw))
+
+    cfg = ANNConfig(**small_kw("l2", dim=16, n_cap=200), quantized=True)
+    data = qgrid_data(140, 16, 3)
+    st = init_index_state(cfg, 140, device="cpu")
+    st, _ = tapi.apply(st, cfg, tapi.insert_batch(np.arange(20), data[:20],
+                                                  device="cpu"),
+                       sequential=True)
+    st, _ = tapi.apply(st, cfg, tapi.insert_batch(np.arange(20, 140),
+                                                  data[20:], device="cpu"))
+    qs = torch.from_numpy(qgrid_data(9, 16, 4))
+    res_t = batched_greedy_search(
+        st.graph, dataclasses.replace(cfg, hop_fused=hops), qs, k=5, l=24)
+    res_c = batched_greedy_search(
+        st.graph, dataclasses.replace(cfg, backend="cuda", hop_fused=hops),
+        qs, k=5, l=24)
+    assert_search_equal(res_t, res_c)
+    assert binds == [(9, 16)]
+    n_hops = int(res_c.n_hops.max())
+    assert calls == [(9, 1)] + ([(9, cfg.r)] * n_hops if hops == 0 else [])
+    assert n_hops > 1
+
+
+def _owned(b, k, d):
+    """How often the kernel's partition of a (b, k) id tile under
+    ``launch_shape(b, k, d)`` serves each id: block i holds queries
+    i * qpb ..., wpq warps each; warp w serves query w // wpq and its ids
+    from (w % wpq) * rows in steps of wpq * rows, rows at a time
+    (``csrc/quant_gather.cu``, ``quant_gather_block_kernel``)."""
+    rows, wpq, qpb = quant_gather.launch_shape(b, k, d)
+    count = np.zeros((b, k), np.int64)
+    for blk in range(-(-b // qpb)):
+        for w in range(wpq * qpb):
+            qi = blk * qpb + w // wpq
+            if qi >= b:
+                continue
+            for j0 in range((w % wpq) * rows, k, wpq * rows):
+                for j in range(j0, min(j0 + rows, k)):
+                    count[qi, j] += 1
+    return count, (rows, wpq, qpb)
+
+
+@pytest.mark.parametrize("b,d,qpb_k1", [(1, 128, 1), (9, 130, 8),
+                                         (512, 128, 8), (13, 2048, 5)])
+def test_quant_gather_launch_shape_covers_each_id_once(b, d, qpb_k1):
+    """For every K from 1 to 130 the launch shape serves each id of the
+    tile exactly once, in blocks of at most ``MAX_WARPS`` warps whose
+    staged queries fit ``STAGE_BYTES``; at K = 1 a warp takes one row and
+    a block packs as many queries as those allow (``qpb_k1``).  The
+    constants are the kernel source's."""
+    import re
+
+    src = (ROOT / "src" / "repro_torch" / "csrc" /
+           "quant_gather.cu").read_text()
+    for name, value in (("kRows", quant_gather.ROWS_PER_WARP),
+                        ("kMaxWarps", quant_gather.MAX_WARPS)):
+        assert re.search(rf"constexpr int {name} = (\d+);", src)[1] == \
+            str(value)
+    for k in range(1, 131):
+        count, (rows, wpq, qpb) = _owned(b, k, d)
+        assert (count == 1).all(), (b, k, d)
+        assert rows in (1, quant_gather.ROWS_PER_WARP)
+        assert wpq * qpb <= quant_gather.MAX_WARPS
+        assert qpb * 16 * -(-d // 4) <= quant_gather.STAGE_BYTES
+    assert _owned(b, 1, d)[1] == (1, 1, qpb_k1)
 
 
 @pytest.mark.parametrize("name", ["beam_superstep", "beam_superstep_q"])
