@@ -34,15 +34,29 @@ Phases, any failure exits non-zero:
      on every hop) and at H = 4, batch by batch in turns: QPS and launches
      per batch of each, every result identical;
   4. short grid-data streams at test size: the f32 ``apply`` stream with
-     backend "cuda" and "torch", and a quantized ``StreamingIndex`` stream
+     backend "cuda" and "torch", a quantized ``StreamingIndex`` stream
      that grows through two capacity buckets with backend "cuda" (hop
      fusion off, so the int8 gather carries every hop, and on) and
-     "torch"; each must end in identical states and results.
+     "torch", and the policy streams: fresh through an Alg-4
+     consolidation, local in f32 and on the int8 tier at H = 0 and H = 4,
+     HNSW through a delete-and-replace round; each must end in identical
+     states and results;
+  5. the fresh and local policies (``StreamingIndex(ANNConfig(dim=128,
+     n_cap=1_000_000), mode=..., batch_updates=True)`` replaying a
+     sliding window through ``run_runbook``) and the HNSW baseline
+     (``HNSWIndex(HNSWConfig(dim=128, n_cap=1_000_000, m=48))`` through
+     ``run_runbook(baseline="hnsw")``) at full width: average Recall@10
+     >= 0.90, no deleted id returned, fresh consolidated (and, after a
+     forced pass, no tombstone and no edge into an inactive slot), local
+     with nothing pending after any delete and no such edge, HNSW reusing
+     tombstoned slots; updates/s, QPS, launches and peak memory of each.
+     Phase 2 also holds kernels 3 and 2 at the HNSW shapes (r = 96 with
+     two staging rounds, and r = 48 at l = 1).
 
 Prints the kernels line, the card's name and power limit, and last the
 ``{"ok": true, "device": ...}`` line; the full record goes to
 ``chiprun_out/chip_smoke.json``.  Usage: ``python3 chip_smoke.py [--seed S]
-[--live N] [--runbook-n N]``.
+[--live N] [--runbook-n N] [--policy-n N] [--hnsw-n N]``.
 """
 from __future__ import annotations
 
@@ -314,7 +328,7 @@ def make_table(n, d, grid, gen):
 
 
 def hop_parity(name, plain, kern, bind, qb, static, starts, d0, grid,
-               n_cap, l, mv, h, row_bytes, steps=8):
+               n_cap, l, mv, h, row_bytes, steps=8, timed=True):
     """A fused hop kernel against its plain version over ``steps``
     super-steps from a fresh search carry, each step fed the plain output:
     bitwise on grid data, else distances to rtol 1e-5 with at most 1% of
@@ -322,8 +336,8 @@ def hop_parity(name, plain, kern, bind, qb, static, starts, d0, grid,
     search (``bind(qb, carry)``) to the public one, bit for bit, and the
     status word to the carry: never unsorted, and active exactly when
     ``lane_active`` finds an active lane in what the kernel left.  On
-    Gaussian data also its times (``ms`` through the bound launcher,
-    ``public_ms`` through the public one) and bound."""
+    Gaussian data (and ``timed``) also its times (``ms`` through the bound
+    launcher, ``public_ms`` through the public one) and bound."""
     import torch
 
     from repro_torch.core import bitset
@@ -388,7 +402,7 @@ def hop_parity(name, plain, kern, bind, qb, static, starts, d0, grid,
         carry = p
     check(diverged <= b // 100, f"{name}: {diverged} of {b} lanes diverge")
     out = {"max_abs_err": max_err, "diverged_lanes": diverged}
-    if not grid:
+    if not grid and timed:
         # time one super-step from the mid-search carry of the last step
         c0 = tuple(t.clone() for t in carry)
         pc = plain(qb, *c0, *static, h=h)
@@ -672,6 +686,10 @@ def kernel_phase(seed, n_cap=1_000_000, d=128, r=64, l=128, b=512, h=4,
                                    starts, d0_fn(starts[:, None])[:, 0],
                                    grid, n_cap, l, mv, h, row_bytes)
 
+        # ---- kernels 3 and 2 at the HNSW baseline's shapes ----------------
+        res.update(hnsw_kernel_parity(gen, qb, vec, norms, nav, nav_w, ret_w,
+                                      lanes_valid, grid, n_cap, h))
+
         # ---- kernel 4: brute-force top-k ----------------------------------
         qt = queries[:q_topk].contiguous()
         bias = torch.where(torch.rand((n_cap,), generator=gen,
@@ -712,6 +730,63 @@ def kernel_phase(seed, n_cap=1_000_000, d=128, r=64, l=128, b=512, h=4,
         torch.cuda.empty_cache()
         rows[data] = res
     return rows
+
+
+def hnsw_kernel_parity(gen, qb, vec, norms, nav, nav_w, ret_w, lanes_valid,
+                       grid, n_cap, h):
+    """Kernels 3 and 2 at the shapes the HNSW baseline gives them: level 0
+    (r = m0 = 96, l = ef = 128, mv = 192), entered at a row with more than
+    64 fresh neighbours so that a hop stages its rows in more than one
+    round, and an upper level's descent (r = m = 48, l = 1, mv = 64);
+    kernel 2 bound to one query at K = 96 and K = 48 (an insert's hops).
+    Bitwise on grid data, else to rtol 1e-5."""
+    import torch
+
+    from repro_torch.kernels import beam_hop as bh
+    from repro_torch.kernels import gather_distance as gd
+
+    out = {}
+    for r, l, mv in ((96, 128, 192), (48, 1, 64)):
+        adj = torch.randint(0, n_cap, (n_cap, r), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        adj[torch.rand((n_cap, r), generator=gen, device="cuda") < 0.15] = -1
+        fresh = ((adj >= 0) & nav[adj.clamp(min=0).long()]).sum(1)
+        start = int(torch.argmax(fresh))
+        starts = torch.where(lanes_valid, start, -1).to(torch.int32)
+        d0 = gd.gather_distance_batched_plain(starts[:, None], qb, vec,
+                                              norms)[:, 0]
+        name = f"beam_hop_fused[r={r},l={l}]"
+        out[name] = hop_parity(
+            name, bh.beam_hop_fused_plain, bh.beam_hop_fused_cuda,
+            lambda q, c: bh.BoundBeamHop(q, c, adj, vec, norms, nav_w,
+                                         ret_w, h=h),
+            qb, (adj, vec, norms, nav_w, ret_w), starts, d0, grid, n_cap, l,
+            mv, h, 4 * vec.shape[1] + 4, timed=False)
+        out[name]["first_hop_fresh"] = int(fresh[start])
+        if r == 96:
+            check(int(fresh[start]) > 64,
+                  f"{name}: the first hop has only {int(fresh[start])} "
+                  f"fresh rows")
+        ids = adj[:8]
+        name = f"gather_distance[K={r}]"
+        errs = []
+        for i in range(ids.shape[0]):
+            a = gd.BoundGather(qb[i], vec, norms)(ids[i])
+            p = gd.gather_distance_plain(ids[i], qb[i], vec, norms)
+            torch.cuda.synchronize()
+            fin = torch.isfinite(p)
+            check(torch.equal(torch.isfinite(a), fin), f"{name}: inf mask")
+            if grid:
+                check(torch.equal(a, p), f"{name}: grid data not bitwise")
+            else:
+                check(torch.allclose(a[fin], p[fin], rtol=1e-5, atol=1e-4),
+                      f"{name}: gaussian mismatch")
+            if fin.any():
+                errs.append(float((a[fin] - p[fin]).abs().max()))
+        out[name] = {"max_abs_err": max(errs, default=0.0),
+                     "queries": ids.shape[0]}
+        del adj
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -993,6 +1068,215 @@ def quant_query_by_hops(idx, qs, qb):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the fresh and local policies and the HNSW baseline at full width
+# ---------------------------------------------------------------------------
+
+
+def edges_into_inactive(adj, active):
+    """Edges of the adjacency that point at a slot that is not live."""
+    valid = adj >= 0
+    return int((valid & ~active[adj.clamp(min=0).long()]).sum())
+
+
+def timed_queries(idx, queries, qb, n_qps, counter):
+    """QPS of ``idx.search`` at B = ``qb`` over ``queries`` tiled to
+    ``n_qps``, and the ``counter`` kernel's launches per query batch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+
+    reps = -(-n_qps // len(queries))
+    qs = np.tile(queries, (reps, 1))[:n_qps]
+    idx.search(qs[:qb])
+    torch.cuda.synchronize()
+    c0 = ops.launch_counts()[counter]
+    t0 = time.perf_counter()
+    for lo in range(0, n_qps, qb):
+        idx.search(qs[lo:lo + qb])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return {"qps": n_qps / dt, "query_batch": qb,
+            "supersteps_per_batch": (ops.launch_counts()[counter] - c0)
+            / (n_qps // qb)}
+
+
+def policy_path(seed, mode, n, t_max=16, eval_every=4, qb=256, n_qps=1024):
+    """``StreamingIndex(mode=...)`` at full width replaying a sliding
+    window through ``run_runbook``: fresh (tombstones navigable, not
+    returnable, Alg-4 consolidation) or local (exact in-neighbour repair,
+    slots freed at once)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (ANNConfig, StreamingIndex, run_runbook,
+                                  sliding_window_runbook)
+    from repro_torch.kernels import ops
+
+    rb = sliding_window_runbook(n=n, dim=128, t_max=t_max, seed=seed)
+    cfg = ANNConfig(dim=128, n_cap=1_000_000)
+    out = {"mode": mode,
+           "cfg": {"dim": cfg.dim, "n_cap": cfg.n_cap, "r": cfg.r,
+                   "l_build": cfg.l_build, "l_search": cfg.l_search,
+                   "alpha": cfg.alpha},
+           "runbook": {"name": rb.name, "n": n, "t_max": t_max,
+                       "eval_every": eval_every, "eval_from": rb.eval_from,
+                       "max_active": rb.max_active}}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    idx = StreamingIndex(cfg, mode=mode, batch_updates=True,
+                         max_external_id=n)
+    check(idx.state.vectors.is_cuda, f"{mode}: the state is not on the card")
+    pending, passes, peak = [], [], [0]
+    delete, consolidate = idx.delete, idx.maybe_consolidate
+
+    def delete_and_record(ids):
+        delete(ids)
+        pending.append(int(idx.state.n_pending))
+
+    def consolidate_and_record(force=False):
+        # each pass that runs: its seconds and the device memory it needs
+        # above what was allocated before it (the path's peak is kept)
+        peak[0] = max(peak[0], torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        n_pend = int(idx.state.n_pending)
+        t1 = time.perf_counter()
+        did = consolidate(force=force)
+        torch.cuda.synchronize()
+        if did:
+            passes.append({"pending": n_pend, "forced": force,
+                           "s": time.perf_counter() - t1,
+                           "peak_extra_bytes":
+                               torch.cuda.max_memory_allocated() - base})
+        return did
+
+    idx.delete = delete_and_record
+    idx.maybe_consolidate = consolidate_and_record
+    rep = run_runbook(idx, rb, k=10, eval_every=eval_every, verbose=True)
+    torch.cuda.synchronize()
+    out["runbook_s"] = time.perf_counter() - t0
+    c = rep.counters
+    out["evals"] = [dataclasses.asdict(m) for m in rep.steps]
+    out["avg_recall"] = rep.avg_recall
+    out["counters"] = dataclasses.asdict(c)
+    out["inserts_per_s"] = c.n_inserts / c.insert_s
+    out["deletes_per_s"] = c.n_deletes / c.delete_s
+    out["n_pending_after_each_delete"] = pending
+    check(rep.avg_recall >= 0.90,
+          f"{mode}: average Recall@10 {rep.avg_recall:.4f} < 0.90")
+    out.update(timed_queries(idx, rb.queries, qb, n_qps, "beam_hop_fused"))
+    ext, _, _ = idx.search(rb.queries, k=10)
+    deleted = np.concatenate([s.delete_ids for s in rb.steps])
+    check(not np.isin(ext, deleted).any(),
+          f"{mode}: a deleted external id was returned")
+    out["launches"] = ops.launch_counts()
+    st = idx.state
+    if mode == "fresh":
+        check(c.n_consolidations >= 1, "fresh: Alg 4 never ran")
+        # tombstone a tenth of the live set (under the trigger), query with
+        # the tombstones in place, then force Alg 4
+        live = np.nonzero(idx.istate.ext2slot.cpu().numpy() >= 0)[0]
+        extra = np.random.default_rng(seed + 11).choice(
+            live, size=len(live) // 10, replace=False)
+        idx.delete(extra)
+        check(int(st.n_pending) == len(extra),
+              "fresh: the extra deletes were not left pending")
+        ext, _, _ = idx.search(rb.queries, k=10)
+        check(not np.isin(ext, extra).any(),
+              "fresh: a tombstoned external id was returned")
+        check(idx.maybe_consolidate(force=True),
+              "fresh: the forced Alg 4 did not run")
+        check(not bool(st.tombstone.any()) and int(st.n_pending) == 0,
+              "fresh: tombstones left after the forced consolidation")
+        out["consolidations"] = passes
+    else:
+        check(all(p == 0 for p in pending),
+              f"local: n_pending after each delete {pending}")
+    out["peak_mem_bytes"] = max(peak[0], torch.cuda.max_memory_allocated())
+    dangling = edges_into_inactive(st.adj, st.active)
+    out["edges_into_inactive"] = dangling
+    check(dangling == 0, f"{mode}: {dangling} edges point into inactive "
+                         f"slots")
+    log(f"{mode} path: avg Recall@10 {rep.avg_recall:.4f}, inserts/s "
+        f"{out['inserts_per_s']:.1f}, deletes/s {out['deletes_per_s']:.1f}, "
+        f"QPS {out['qps']:.1f}, consolidations {c.n_consolidations}, peak "
+        f"mem {out['peak_mem_bytes'] / 2**30:.2f} GiB, launches "
+        f"{out['launches']}")
+    for name in F32_PATH:
+        check(out["launches"][name] > 0,
+              f"kernel {name} never launched on the {mode} path")
+    return out
+
+
+def hnsw_path(seed, n, t_max=16, eval_every=4, qb=256, n_qps=1024):
+    """``HNSWIndex`` at the paper's M = 48 on a 10^6-slot table replaying a
+    sliding window through ``run_runbook(baseline="hnsw")``: serial inserts
+    (kernel 2 on every hop), mark-deletes, replacement inserts into
+    tombstoned slots, and queries through the batched engine (kernels 1
+    and 3) with per-query descent starts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (HNSWConfig, HNSWIndex, run_runbook,
+                                  sliding_window_runbook)
+    from repro_torch.kernels import ops
+
+    rb = sliding_window_runbook(n=n, dim=128, t_max=t_max, seed=seed)
+    cfg = HNSWConfig(dim=128, n_cap=1_000_000, m=48, ef_construction=128,
+                     ef_search=128, max_level=4)
+    out = {"cfg": dataclasses.asdict(cfg),
+           "runbook": {"name": rb.name, "n": n, "t_max": t_max,
+                       "eval_every": eval_every, "eval_from": rb.eval_from,
+                       "max_active": rb.max_active}}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    idx = HNSWIndex(cfg, max_external_id=n, seed=seed)
+    check(idx.state.adj0.is_cuda, "hnsw: the state is not on the card")
+    rep = run_runbook(idx, rb, k=10, eval_every=eval_every, verbose=True,
+                      baseline="hnsw")
+    torch.cuda.synchronize()
+    out["runbook_s"] = time.perf_counter() - t0
+    c = rep.counters
+    out["evals"] = [dataclasses.asdict(m) for m in rep.steps]
+    out["avg_recall"] = rep.avg_recall
+    out["counters"] = dataclasses.asdict(c)
+    # mark-deletes are booked into insert_s, as the reference books them
+    out["inserts_per_s"] = c.n_inserts / c.insert_s
+    out["ms_per_insert"] = c.insert_s / c.n_inserts * 1e3
+    check(rep.avg_recall >= 0.90,
+          f"hnsw: average Recall@10 {rep.avg_recall:.4f} < 0.90")
+    out.update(timed_queries(idx, rb.queries, qb, n_qps, "beam_hop_fused"))
+    ext, _, _ = idx.search(rb.queries, k=10)
+    deleted = np.concatenate([s.delete_ids for s in rb.steps])
+    check(not np.isin(ext, deleted).any(),
+          "hnsw: a deleted external id was returned")
+    st = idx.state
+    popped = cfg.n_cap - int(st.free_top)
+    out["slots_from_free_stack"] = popped
+    out["slots_reused"] = c.n_inserts - popped
+    check(popped < c.n_inserts, "hnsw: no insert reused a tombstoned slot")
+    out["tombstones_left"] = int(st.tombstone.sum())
+    out["levels"] = {int(v): int(k) for v, k in zip(
+        *np.unique(st.level.cpu().numpy(), return_counts=True))}
+    out["launches"] = ops.launch_counts()
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"hnsw path: avg Recall@10 {rep.avg_recall:.4f}, inserts/s "
+        f"{out['inserts_per_s']:.2f} ({out['ms_per_insert']:.1f} ms each), "
+        f"QPS {out['qps']:.1f}, reused {out['slots_reused']} slots, peak mem "
+        f"{out['peak_mem_bytes'] / 2**30:.2f} GiB, launches "
+        f"{out['launches']}")
+    for name in F32_PATH:
+        check(out["launches"][name] > 0,
+              f"kernel {name} never launched on the hnsw path")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: kernel path against plain path, end to end
 # ---------------------------------------------------------------------------
 
@@ -1120,14 +1404,102 @@ def quant_engines_agree(seed, n_pts=900, n_cap=256):
             "runs": [f"{b}/H={h}" for b, h in runs], "identical": True}
 
 
+def policy_engines_agree(seed, n_pts=480, n_del=160):
+    """Grid-data streams at test size, each with backend "cuda" and
+    "torch": fresh (through an Alg-4 consolidation), local in f32 and on
+    the int8 tier at H = 0 and H = 4 (``StreamingIndex`` with batched
+    updates), and HNSW through a delete-and-replace round; each pair must
+    end in identical states and results, and the cuda run must have
+    launched its kernels."""
+    import numpy as np
+
+    from repro_torch.configs import test_scale
+    from repro_torch.core import HNSWConfig, HNSWIndex, StreamingIndex
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(seed + 5)
+    data = qgrid(rng, n_pts, 32)
+    q = qgrid(rng, 64, 32)
+    first = n_pts * 5 // 6
+    dels = rng.choice(first, size=n_del, replace=False)
+    streams = {
+        "fresh": ("fresh", False, -1, ("beam_hop_fused",)),
+        "local": ("local", False, -1, ("beam_hop_fused",)),
+        "local/int8/H=0": ("local", True, 0, ("gather_distance_batched_q",)),
+        "local/int8/H=4": ("local", True, 4, ("beam_hop_fused_q",)),
+    }
+    out = {}
+    for key, (mode, quantized, hops, kernels) in streams.items():
+        runs = {}
+        for backend in ("cuda", "torch"):
+            cfg = dataclasses.replace(
+                test_scale(dim=32, n_cap=1024, backend=backend),
+                quantized=quantized, hop_fused=hops)
+            idx = StreamingIndex(cfg, mode=mode, batch_updates=True,
+                                 max_external_id=n_pts)
+            ops.reset_launch_counts()
+            idx.insert(np.arange(first), data[:first])
+            idx.delete(dels[:n_del * 3 // 4])
+            idx.insert(np.arange(first, n_pts), data[first:])
+            idx.delete(dels[n_del * 3 // 4:])
+            ext, dist, slots = idx.search(q, k=10)
+            runs[backend] = {"state": idx.istate, "ext": ext, "dist": dist,
+                             "slots": slots, "launches": ops.launch_counts(),
+                             "consolidations": idx.counters.n_consolidations}
+        out[key] = compare_runs(key, runs, kernels)
+        if mode == "fresh":
+            check(runs["cuda"]["consolidations"] >= 1,
+                  "phase 4: the fresh stream never consolidated")
+    runs = {}
+    for backend in ("cuda", "torch"):
+        cfg = HNSWConfig(dim=32, n_cap=n_pts * 3 // 4, m=8, ef_construction=32,
+                         ef_search=32, max_level=2, backend=backend)
+        idx = HNSWIndex(cfg, max_external_id=n_pts, seed=seed)
+        ops.reset_launch_counts()
+        half = cfg.n_cap * 2 // 3
+        idx.insert(np.arange(half), data[:half])
+        idx.delete(np.arange(0, half, 2))
+        idx.insert(np.arange(half, cfg.n_cap), data[half:cfg.n_cap])
+        check(int(idx.state.tombstone.sum()) < half // 2,
+              "phase 4: the hnsw stream reused no tombstoned slot")
+        ext, dist, slots = idx.search(q, k=10)
+        runs[backend] = {"state": idx.state, "ext": ext, "dist": dist,
+                         "slots": slots, "launches": ops.launch_counts()}
+    out["hnsw"] = compare_runs("hnsw", runs, ("gather_distance",
+                                              "beam_hop_fused"))
+    return out
+
+
+def compare_runs(key, runs, kernels):
+    """The cuda and torch runs of one stream: every state leaf and result
+    identical, and ``kernels`` launched by the cuda run."""
+    import numpy as np
+
+    a, b = runs["cuda"], runs["torch"]
+    flat = differing_leaves(a["state"], b["state"], "state")
+    bad = [p for p, ok in flat if not ok]
+    same = all(np.array_equal(a[f], b[f]) for f in ("ext", "dist", "slots"))
+    check(same and not bad, f"phase 4: {key} cuda and torch differ in {bad}")
+    for name in kernels:
+        check(a["launches"][name] > 0,
+              f"phase 4: {key} never launched {name}")
+    return {"fields_compared": len(flat), "identical": True,
+            "cuda_launches": {k: v for k, v in a["launches"].items() if v}}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--live", type=int, default=4096,
                     help="points linked into the f32 path's 10^6-slot table")
-    ap.add_argument("--runbook-n", type=int, default=8192,
+    ap.add_argument("--runbook-n", type=int, default=4096,
                     help="points of the quantized path's sliding window "
                          "(at most half of them live)")
+    ap.add_argument("--policy-n", type=int, default=4096,
+                    help="points of the fresh and local paths' sliding "
+                         "window")
+    ap.add_argument("--hnsw-n", type=int, default=1024,
+                    help="points of the HNSW path's sliding window")
     args = ap.parse_args(argv)
 
     import torch
@@ -1187,7 +1559,16 @@ def main(argv=None):
     log(f"cuda vs torch engines: {record['engines']}")
     record["quant_engines"] = quant_engines_agree(args.seed)
     log(f"quantized cuda vs torch engines: {record['quant_engines']}")
+    record["policy_engines"] = policy_engines_agree(args.seed)
+    log(f"policy streams, cuda vs torch: {record['policy_engines']}")
     record["engines_s"] = time.perf_counter() - t0
+    for mode in ("fresh", "local"):
+        t0 = time.perf_counter()
+        record[mode] = policy_path(args.seed, mode, args.policy_n)
+        record[mode]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    record["hnsw"] = hnsw_path(args.seed, args.hnsw_n)
+    record["hnsw"]["wall_s"] = time.perf_counter() - t0
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1205,7 +1586,8 @@ def main(argv=None):
             "replaces": TPU_SITES[name], "tpu_def": TPU_DEFS[name],
             "launches": record[path]["launches"].get(name, 0),
             "launches_by_path": {p: record[p]["launches"].get(name, 0)
-                                 for p in ("main", "quant")},
+                                 for p in ("main", "quant", "fresh", "local",
+                                           "hnsw")},
             "max_abs_err": g.get("max_abs_err"),
             "grid_bitwise": name in grid,
             "ms": g.get("ms"), "public_ms": g.get("public_ms"),

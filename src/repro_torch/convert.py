@@ -10,6 +10,11 @@ the other leaves; ``index_state_from_numpy`` turns it into the port's
 tensors and ``index_state_to_numpy`` back.  Packed bitmaps are
 uint32 in the reference and int32 with the same bits here
 (``words_from_numpy`` / ``words_to_numpy``).
+
+An HNSW hierarchy (``core/hnsw.py::HNSWState``) travels as ``{field:
+array}`` over its fields in order: ``hnsw_state_from_numpy`` /
+``hnsw_state_to_numpy`` (a reference ``HNSWState`` becomes that dict with
+``np.asarray`` on each field).
 """
 from __future__ import annotations
 
@@ -65,6 +70,19 @@ def index_state_to_numpy(state: IndexState) -> dict:
     out = {"graph": graph_state_to_numpy(state.graph)}
     out.update({f: getattr(state, f).cpu().numpy() for f in _INDEX_LEAVES})
     return out
+
+
+def hnsw_state_from_numpy(d: dict, device=None):
+    """The port's ``HNSWState`` from ``{field: array}``, on ``device``
+    (default: the card)."""
+    from .core.hnsw import HNSWState
+
+    dev = resolve_device(device)
+    return HNSWState(*(_tensor(d[f], dev) for f in HNSWState._fields))
+
+
+def hnsw_state_to_numpy(st) -> dict:
+    return {f: v.cpu().numpy() for f, v in st._asdict().items()}
 
 
 def words_from_numpy(words, device=None) -> torch.Tensor:

@@ -1,8 +1,12 @@
 # IP-DiskANN's streaming loop (insert, in-place delete, beam search,
-# recall), the StreamingIndex shell with capacity growth, the runbook
-# driver and the int8 quantized tier, on PyTorch tensors, with hand-written
-# CUDA kernels on the card.
+# recall), the fresh and local update policies, the HNSW baseline, the
+# StreamingIndex shell with capacity growth, the runbook driver and the
+# int8 quantized tier, on PyTorch tensors, with hand-written CUDA kernels
+# on the card.
 from .api import (
+    FreshDiskANNPolicy,
+    IPDiskANNPolicy,
+    LocalRepairPolicy,
     UpdatePolicy,
     apply,
     available_policies,
@@ -27,11 +31,15 @@ from .backend import (
     resolve_backend,
 )
 from .batched import insert_many_batched, ip_delete_many_batched
-from .consolidate import consolidation_due, light_consolidate
-from .delete import ip_delete, ip_delete_many
+from .consolidate import (consolidation_due, fresh_consolidate,
+                          light_consolidate)
+from .delete import (ip_delete, ip_delete_many, lazy_delete,
+                     lazy_delete_many, local_delete, local_delete_many)
 from .driver import RunbookReport, StepMetrics, run_runbook
 from .grow import (HIGH_WATER, ensure_capacity, grow_index, needs_growth,
                    next_capacity)
+from .edges import remove_target_everywhere
+from .hnsw import HNSWConfig, HNSWIndex, HNSWState, init_hnsw
 from .index import EvalCounters, OpCounters, StreamingIndex
 from .insert import insert, insert_many
 from .prune import robust_prune, robust_prune_rows

@@ -1,7 +1,9 @@
 """The unified op-stream API (``repro/core/api.py``), the main-path part:
 ``apply(state, cfg, batch)`` for updates, ``search(state, cfg, queries)``
-for queries, the ``UpdatePolicy`` registry (``ip`` for now) and the
-consolidation trigger.
+for queries, the ``UpdatePolicy`` registry (``ip``, ``fresh``, ``local``)
+and the consolidation trigger.  The reference's ``consolidation_fields`` /
+``consolidate_narrow`` only keep the vector table out of a ``lax.cond``'s
+operands and have no counterpart here.
 
 Semantics are the reference's, lane for lane: a mixed batch applies all
 insert lanes first (lane order), then all delete lanes (lane order), the
@@ -22,8 +24,9 @@ import numpy as np
 import torch
 
 from .batched import insert_many_batched, ip_delete_many_batched
-from .consolidate import consolidation_due, light_consolidate
-from .delete import ip_delete_many
+from .consolidate import (consolidation_due, fresh_consolidate,
+                          light_consolidate)
+from .delete import ip_delete_many, lazy_delete_many, local_delete_many
 from .insert import insert_many
 from .search import search_batch
 from .search_batched import next_bucket
@@ -56,17 +59,32 @@ def clone_state(state):
 
 
 class UpdatePolicy:
-    """Pluggable delete strategy + consolidation trigger.  Only policies
-    whose pass runs on the device (``ip``) are ported so far."""
+    """Pluggable delete strategy + consolidation trigger, selected by name
+    (``@register_policy``)."""
 
     name = "abstract"
+    # True when ``consolidate`` is a device pass the trigger can run right
+    # where it fires (ip, local: Algorithm 6); False (fresh) when the pass
+    # is host-orchestrated and the host decides when to run it
+    device_consolidation = False
 
     def delete_many(self, graph: GraphState, cfg: ANNConfig, ps, *,
                     sequential: bool):
+        """Delete the slots ``ps`` (i32[B], INVALID lanes are no-ops).
+        Returns ``(graph, DeleteStats)`` with per-lane ``ok``/``n_comps``."""
         raise NotImplementedError
+
+    def should_consolidate(self, cfg: ANNConfig, n_active: int,
+                           n_pending: int) -> bool:
+        """Host-side trigger: pending removals exceed the configured
+        fraction of the live set."""
+        if n_pending == 0:
+            return False
+        return n_pending > cfg.consolidation_threshold * max(n_active, 1)
 
     def should_consolidate_device(self, cfg: ANNConfig,
                                   graph: GraphState) -> torch.Tensor:
+        """The same trigger as a bool tensor over the state's counters."""
         return consolidation_due(graph, cfg)
 
     def consolidate(self, graph: GraphState, cfg: ANNConfig) -> GraphState:
@@ -104,9 +122,43 @@ class IPDiskANNPolicy(UpdatePolicy):
     """In-place deletes (Alg 5); quarantined slots released by the light
     Alg 6 sweep."""
 
+    device_consolidation = True
+
     def delete_many(self, graph, cfg, ps, *, sequential):
         fn = ip_delete_many if sequential else ip_delete_many_batched
         return fn(graph, cfg, ps)
+
+    def consolidate(self, graph, cfg):
+        return light_consolidate(graph, cfg)
+
+
+@register_policy("fresh")
+class FreshDiskANNPolicy(UpdatePolicy):
+    """FreshDiskANN baseline: tombstone deletes, batch consolidation
+    (Alg 4) past the threshold, run by the host."""
+
+    def delete_many(self, graph, cfg, ps, *, sequential):
+        # a mask flip: one formulation for both visibility modes
+        return lazy_delete_many(graph, cfg, ps)
+
+    def consolidate(self, graph, cfg):
+        return fresh_consolidate(graph, cfg)
+
+
+@register_policy("local")
+class LocalRepairPolicy(UpdatePolicy):
+    """Topology-aware localized repair: exact in-neighbourhood, every
+    in-edge removed, a bounded in-neighbour set reconnected through
+    ``N_out(p)``, the slot freed at once (``core/delete.py::local_delete``).
+    Its deletes leave nothing pending, so the Algorithm-6 sweep only runs
+    for a state inherited from another policy."""
+
+    device_consolidation = True
+
+    def delete_many(self, graph, cfg, ps, *, sequential):
+        # each lane's exact in-neighbour compare must see the previous
+        # lane's repairs: serial in both visibility modes
+        return local_delete_many(graph, cfg, ps)
 
     def consolidate(self, graph, cfg):
         return light_consolidate(graph, cfg)
@@ -321,8 +373,14 @@ def device_sweep(graph: GraphState, cfg: ANNConfig, pol: UpdatePolicy,
 def consolidate_if_needed(state: IndexState, cfg: ANNConfig, *,
                           policy: str = "ip", force: bool = False):
     """Evaluate the policy's trigger over the state's counters and sweep if
-    it fires.  Returns ``(IndexState, did: bool tensor)``."""
+    it fires.  Returns ``(IndexState, did: bool tensor)``.  Only policies
+    with ``device_consolidation`` qualify; ``fresh`` goes through
+    ``maybe_consolidate``."""
     pol = get_policy(policy)
+    if not pol.device_consolidation:
+        raise ValueError(
+            f"policy {policy!r} consolidates on host; use maybe_consolidate"
+        )
     if force:
         trig = state.graph.n_pending > 0
     else:
@@ -335,10 +393,20 @@ def maybe_consolidate(state: IndexState, cfg: ANNConfig, *,
                       policy: str = "ip", force: bool = False):
     """Run the policy's consolidation pass if its trigger fires (or, with
     ``force``, whenever slots are pending); returns ``(IndexState, did:
-    bool)``."""
-    state, did = consolidate_if_needed(state, cfg, policy=policy,
-                                       force=force)
-    return state, bool(did)
+    bool)``.  Device policies (ip, local) go through
+    ``consolidate_if_needed``; host policies (fresh) decide on the host from
+    the synced counters."""
+    pol = get_policy(policy)
+    if pol.device_consolidation:
+        state, did = consolidate_if_needed(state, cfg, policy=policy,
+                                           force=force)
+        return state, bool(did)
+    n_active = int(state.graph.n_active)
+    n_pending = int(state.graph.n_pending)
+    if not (force and n_pending > 0) and not pol.should_consolidate(
+            cfg, n_active, n_pending):
+        return state, False
+    return state._replace(graph=pol.consolidate(state.graph, cfg)), True
 
 
 # ---------------------------------------------------------------------------
@@ -360,7 +428,8 @@ def search(state: IndexState, cfg: ANNConfig, queries: torch.Tensor, *,
 
 
 __all__ = [
-    "IPDiskANNPolicy", "UpdatePolicy", "apply", "available_policies",
+    "FreshDiskANNPolicy", "IPDiskANNPolicy", "LocalRepairPolicy",
+    "UpdatePolicy", "apply", "available_policies",
     "clone_state", "consolidate_if_needed", "delete_batch", "device_sweep",
     "get_policy", "insert_batch", "make_update_batch", "maybe_consolidate",
     "mixed_update_batch", "pad_update_batch", "register_policy", "search",

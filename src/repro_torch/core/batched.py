@@ -40,12 +40,15 @@ def insert_many_batched(state: GraphState, cfg: ANNConfig, xs: torch.Tensor,
     valid = valid.to(dev)
     # phase 0: allocate slots (consecutive stack entries, earliest lanes
     # lose out when capacity runs short) and write vectors; the slots stay
-    # inactive, so the searches cannot find them
+    # inactive, so the searches cannot find them.  A masked lane after the
+    # last valid one points at ``free_top`` itself (``n_cap`` on an empty
+    # index): the pop index is clamped into the stack as the reference's
+    # gather clamps it, and only ``ok`` lanes write
     vi = valid.to(torch.int32)
     rank = torch.cumsum(vi, 0) - vi
     idxs = state.free_top - vi.sum() + rank
     ok = valid & (idxs >= 0)
-    slots = torch.where(ok, state.free_stack[idxs.clamp(min=0).long()],
+    slots = torch.where(ok, state.free_stack[clip_ids(idxs, cfg.n_cap)],
                         torch.full_like(idxs, INVALID)).to(torch.int32)
     xs_f = xs.to(state.vectors.dtype)
     ok_l = ok.cpu().tolist()

@@ -1,4 +1,8 @@
-"""In-place deletion (Algorithm 5) — ``repro/core/delete.py``'s ``ip`` path.
+"""Deletes (``repro/core/delete.py``): in-place deletion (Algorithm 5, the
+``ip`` policy), the topology-aware localized repair of the ``local`` policy
+and FreshDiskANN's lazy tombstone delete (the ``fresh`` policy).
+
+Algorithm 5:
 
   1. GreedySearch(x_p, k, l_d) -> Visited, Candidates (top-k).
   2. Approximate in-neighbours N'_in = {z in Visited : p in N_out(z)}.
@@ -11,8 +15,14 @@
 The reference appends one edge at a time.  Appends to distinct rows commute
 (``core/edges.py``), so step 3 runs as c rounds of one batched append (the
 visited rows are distinct), and step 4 as waves: wave t applies every
-row's t-th pending append, which keeps each row's own order.  The state's
-tensors are updated in place.
+row's t-th pending append, which keeps each row's own order.
+
+``local_delete`` reads the exact in-neighbourhood off the adjacency, removes
+every in-edge, reconnects the first ``resolved_local_in_cap()`` in-neighbours
+(ascending slot order) to their c closest candidates of ``N_out(p)`` and
+frees the slot at once.  Its z rows are distinct, so the reference's serial
+appends run as c rounds of one batched append.  ``lazy_delete`` only flips
+masks.  The state's tensors are updated in place.
 """
 from __future__ import annotations
 
@@ -21,9 +31,9 @@ from typing import NamedTuple
 import torch
 
 from .backend import BIG, resolve_backend
-from .edges import append_rows, remove_target_rows
+from .edges import append_rows, remove_target_everywhere, remove_target_rows
 from .search import greedy_search
-from .types import INVALID, ANNConfig, GraphState, clip_ids
+from .types import INVALID, ANNConfig, GraphState, clip_ids, mask_duplicates
 
 
 class DeleteStats(NamedTuple):
@@ -102,9 +112,8 @@ def repair_edges(st: GraphState, cfg: ANNConfig, p: int, vis, cands):
 def ip_delete(state: GraphState, cfg: ANNConfig, p: int):
     """Delete slot ``p`` in place (Algorithm 5)."""
     dev = state.vectors.device
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
     if p < 0 or not bool(state.active[min(p, cfg.n_cap - 1)]):
-        return state, DeleteStats(torch.tensor(False, device=dev), zero, zero)
+        return state, _no_delete(dev)
     sp = min(p, cfg.n_cap - 1)
     res = greedy_search(state, cfg, state.vectors[sp].clone(),
                         k=cfg.k_delete, l=cfg.l_delete)
@@ -119,14 +128,102 @@ def ip_delete(state: GraphState, cfg: ANNConfig, p: int):
                               (res.n_comps + extra).to(torch.int32), n_in)
 
 
-def ip_delete_many(state: GraphState, cfg: ANNConfig, ps: torch.Tensor):
-    """Serial in-place deletes, each seeing every earlier write."""
+def _no_delete(dev) -> DeleteStats:
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    return DeleteStats(torch.tensor(False, device=dev), zero, zero)
+
+
+def _serial(delete_one, state: GraphState, cfg: ANNConfig, ps):
+    """``delete_one`` lane by lane, each seeing every earlier write."""
     dev = state.vectors.device
     stats = []
     for p in ps.cpu().tolist():
-        state, st = ip_delete(state, cfg, int(p))
+        state, st = delete_one(state, cfg, int(p))
         stats.append(st)
     if not stats:
         z = torch.zeros((0,), dtype=torch.int32, device=dev)
         return state, DeleteStats(z.bool(), z, z)
     return state, DeleteStats(*(torch.stack(f) for f in zip(*stats)))
+
+
+def ip_delete_many(state: GraphState, cfg: ANNConfig, ps: torch.Tensor):
+    """Serial in-place deletes, each seeing every earlier write."""
+    return _serial(ip_delete, state, cfg, ps)
+
+
+# ---------------------------------------------------------------------------
+# Topology-aware localized repair (the "local" policy)
+# ---------------------------------------------------------------------------
+
+
+def local_delete(state: GraphState, cfg: ANNConfig, p: int):
+    """Delete slot ``p`` with localized repair: the exact in-neighbours
+    (one (n_cap, r) compare), every ``z -> p`` removed, the first
+    ``resolved_local_in_cap()`` in-neighbours in ascending slot order given
+    edges to their c closest of ``N_out(p)``, and the slot released
+    straight onto the free stack (no quarantine, no pending debt)."""
+    dev = state.vectors.device
+    if p < 0 or not bool(state.active[min(p, cfg.n_cap - 1)]):
+        return state, _no_delete(dev)
+    sp = min(p, cfg.n_cap - 1)
+    b_in = min(cfg.resolved_local_in_cap(), cfg.n_cap)
+    nout_p = state.adj[sp].clone()                 # local candidate set
+    in_rows = (state.adj == p).any(1)
+    in_rows[sp] = False
+    z_all = torch.nonzero(in_rows).squeeze(1)      # ascending slot order
+    n_in = torch.tensor(z_all.numel(), dtype=torch.int32, device=dev)
+    z_ids = z_all[:b_in].to(torch.int32)
+    remove_target_everywhere(state, cfg, p)
+    if z_ids.numel():
+        cz = _topc_candidates(state, cfg, z_ids, nout_p, cfg.n_copies)
+        # the z rows are distinct: round j appends every z's j-th candidate
+        for j in range(cfg.n_copies):
+            append_rows(state, cfg, z_ids, cz[:, j])
+    new_start = _next_start(state, cfg, p, nout_p)
+    top = int(state.free_top)
+    state.adj[sp] = INVALID
+    state.active[sp] = False
+    state.free_stack[top] = sp
+    state.free_top.add_(1)
+    state.n_active.sub_(1)
+    state.start.copy_(new_start)
+    comps = z_ids.numel() * int((nout_p >= 0).sum())
+    return state, DeleteStats(torch.tensor(True, device=dev),
+                              torch.tensor(comps, dtype=torch.int32,
+                                           device=dev), n_in)
+
+
+def local_delete_many(state: GraphState, cfg: ANNConfig, ps: torch.Tensor):
+    """Serial localized deletes in both visibility modes: each lane's exact
+    in-neighbour compare must see the previous lane's repairs."""
+    return _serial(local_delete, state, cfg, ps)
+
+
+# ---------------------------------------------------------------------------
+# FreshDiskANN lazy delete (baseline)
+# ---------------------------------------------------------------------------
+
+
+def lazy_delete(state: GraphState, cfg: ANNConfig, p: int):
+    """Tombstone ``p``: still navigable, no longer returnable."""
+    state, st = lazy_delete_many(
+        state, cfg, torch.tensor([p], dtype=torch.int32,
+                                 device=state.vectors.device))
+    return state, DeleteStats(*(f[0] for f in st))
+
+
+def lazy_delete_many(state: GraphState, cfg: ANNConfig, ps: torch.Tensor):
+    """The reference's serial scan of ``lazy_delete`` in one step: a lane
+    deletes when its slot is live and no earlier lane names it."""
+    dev = state.vectors.device
+    ps = ps.to(torch.int32).reshape(-1)
+    first = mask_duplicates(ps)
+    ok = (first >= 0) & state.active[clip_ids(first, cfg.n_cap)]
+    sel = clip_ids(ps[ok], cfg.n_cap)
+    state.active[sel] = False
+    state.tombstone[sel] = True
+    n = ok.sum().to(torch.int32)
+    state.n_active.sub_(n)
+    state.n_pending.add_(n)
+    zero = torch.zeros_like(ps)
+    return state, DeleteStats(ok, zero, zero)

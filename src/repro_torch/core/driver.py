@@ -2,9 +2,10 @@
 a ``StreamingIndex`` and record per-step recall, distance computations and
 throughput (the paper's §4 loop, Figure 1).
 
-The per-op path only: ``segmented=True`` waits for compiled segments
-(ROADMAP Queue 1, slice 10) and ``baseline="hnsw"`` for the HNSW baseline
-(slice 9); both raise ``NotImplementedError``.
+The per-op path, for a ``StreamingIndex`` under any policy or, with
+``baseline="hnsw"``, an ``HNSWIndex``.  ``segmented=True`` waits for
+compiled segments (ROADMAP Queue 1, slice 10) and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -14,7 +15,6 @@ from typing import List, Optional
 
 import numpy as np
 
-from .index import StreamingIndex
 from .runbook import Runbook
 
 
@@ -56,19 +56,29 @@ class RunbookReport:
         return out
 
 
-def run_runbook(index: StreamingIndex, rb: Runbook, *, k: int = 10,
+def run_runbook(index, rb: Runbook, *, k: int = 10,
                 eval_every: int = 1, max_steps: Optional[int] = None,
                 segmented: bool = False, verbose: bool = False,
                 baseline: Optional[str] = None) -> RunbookReport:
-    """Replay ``rb`` against ``index``: per step, the inserts then the
+    """Replay ``rb`` against ``index`` (a ``StreamingIndex``, or an
+    ``HNSWIndex`` with ``baseline="hnsw"``): per step, the inserts then the
     deletes, and every ``eval_every``-th step a Recall@k evaluation over
     the runbook's queries (booked into ``index.eval_counters``)."""
     if baseline is not None:
         if baseline != "hnsw":
             raise ValueError(f"unknown baseline {baseline!r}")
-        raise NotImplementedError(
-            "the HNSW baseline is not ported yet (ROADMAP Queue 1, slice 9)"
-        )
+        from .hnsw import HNSWIndex
+
+        if not isinstance(index, HNSWIndex):
+            raise TypeError(
+                "baseline='hnsw' expects an HNSWIndex, got "
+                f"{type(index).__name__}"
+            )
+        if segmented:
+            raise ValueError(
+                "the hnsw baseline is host-orchestrated per op: segmented "
+                "replay is not supported"
+            )
     if segmented:
         raise NotImplementedError(
             "segmented replay is not ported yet (ROADMAP Queue 1, slice 10)"

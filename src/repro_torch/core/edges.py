@@ -13,7 +13,8 @@ from __future__ import annotations
 import torch
 
 from .prune import robust_prune_rows
-from .types import INVALID, ANNConfig, GraphState, clip_ids, compact_row
+from .types import (INVALID, ANNConfig, GraphState, clip_ids, compact_row,
+                    row_contains, row_count)
 
 
 def append_rows(state: GraphState, cfg: ANNConfig, vs: torch.Tensor,
@@ -28,9 +29,9 @@ def append_rows(state: GraphState, cfg: ANNConfig, vs: torch.Tensor,
     rows = state.adj[sv]                                      # (M, r)
     u_live = state.active[su] | state.tombstone[su]
     v_live = state.active[sv] | state.tombstone[sv]
-    skip = ((vs < 0) | (us < 0) | (vs == us) | (rows == us[:, None]).any(1)
+    skip = ((vs < 0) | (us < 0) | (vs == us) | row_contains(rows, us)
             | ~u_live | ~v_live)
-    cnt = (rows >= 0).sum(1)
+    cnt = row_count(rows)
     do_append = ~skip & (cnt < cfg.r)
     do_prune = ~skip & (cnt >= cfg.r)
     # one host read decides which lanes append and which prune
@@ -52,6 +53,23 @@ def append_one(state: GraphState, cfg: ANNConfig, v, u) -> GraphState:
     dev = state.adj.device
     return append_rows(state, cfg, torch.as_tensor(v, device=dev),
                        torch.as_tensor(u, device=dev))
+
+
+def remove_target_everywhere(state: GraphState, cfg: ANNConfig, target):
+    """Remove every edge ``* -> target`` from the whole adjacency: one
+    (n_cap, r) compare, the exact in-neighbourhood.  Only the rows that
+    had a hit are re-compacted and written (the reference re-compacts all
+    n_cap rows and keeps the untouched ones bit-identical, which is the
+    same result).  Updates ``state.adj`` in place and returns it."""
+    if int(target) < 0:
+        return state.adj
+    hit = state.adj == int(target)
+    sel = torch.nonzero(hit.any(1)).squeeze(1)
+    if sel.numel():
+        rows = state.adj[sel]
+        state.adj[sel] = compact_row(
+            torch.where(hit[sel], torch.full_like(rows, INVALID), rows))
+    return state.adj
 
 
 def remove_target_rows(state: GraphState, cfg: ANNConfig, row_ids, target):

@@ -13,9 +13,11 @@ them), so callers must not hold raw tensors of ``istate`` across an update;
 ``core.api.clone_state`` gives a copy.  Evaluation traffic (``recall``)
 books into ``eval_counters``, never into the serving ``counters``.
 
-Only the ``ip`` policy is ported.  ``apply_segments`` (compiled segments,
-ROADMAP Queue 1 slice 10) and ``save`` / ``restore`` (durability, slice 12)
-raise ``NotImplementedError``.
+Every registered update policy runs (``ip``, ``fresh``, ``local``); a
+delete ends with ``maybe_consolidate`` under the index's own policy.
+``apply_segments`` (compiled segments, ROADMAP Queue 1 slice 10) and
+``save`` / ``restore`` (durability, slice 12) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -74,7 +76,7 @@ class StreamingIndex:
                  batch_updates: bool = False,
                  backend: Optional[str] = None, auto_grow: bool = True,
                  device=None):
-        """``mode``: the update policy name (only ``ip`` is ported).
+        """``mode``: the update policy name (``available_policies()``).
         ``batch_updates``: run the search phase of a batch of updates
         data-parallel (relaxed visibility, see ``core/batched.py``).
         ``backend``: override ``cfg.backend``.  ``auto_grow``: grow
@@ -84,9 +86,7 @@ class StreamingIndex:
         (default: the card)."""
         if mode not in available_policies():
             raise ValueError(
-                f"unknown or unported policy {mode!r}; available: "
-                f"{available_policies()} (fresh and local: ROADMAP Queue 1, "
-                f"slice 9)"
+                f"unknown policy {mode!r}; available: {available_policies()}"
             )
         if backend is not None:
             cfg = dataclasses.replace(cfg, backend=backend)

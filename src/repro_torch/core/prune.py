@@ -5,11 +5,16 @@ The candidate set is a fixed-width id vector (INVALID padded); ``r``
 selection steps each take the closest remaining candidate and occlude the
 candidates u with ``alpha * d(u, v) <= d(u, p)``.  ``robust_prune_rows``
 runs the same steps for M independent rows at once.  The occlusion
-distances ``d(u, v)`` of all candidate pairs come from one batched pair
-matrix computed up front, ``(||x_v||^2 + ||x_u||^2) - 2<x_u, x_v>``, the
-reference's per-step expression.  Once no row has a live candidate the
-remaining steps are no-ops, so the loop stops there (checked every
-``_CHECK_EVERY`` steps: one host read each).
+distances are the reference's per-step expression
+``(||x_v||^2 + ||x_u||^2) - 2<x_u, x_v>`` in one of two formulations: for
+an insert's candidate set (C up to ``WIDE_PRUNE_C``) one batched (M, C, C)
+pair matrix computed up front; for wider sets (Alg 4's splice, C = r + r^2;
+HNSW's replace repair, C = m0 + m0^2) one (M, C) row of ``d(x_v, .)`` per
+selection step, as the reference computes it, so that memory stays at the
+gathered (M, C, D) rows.  Both give the same rows (bitwise on grid data).
+Once no row has a live candidate the remaining steps are no-ops, so the
+loop stops there (checked every ``_CHECK_EVERY`` steps: one host read
+each).
 """
 from __future__ import annotations
 
@@ -22,6 +27,9 @@ from .types import (INVALID, ANNConfig, GraphState, clip_ids, compact_row,
                     mask_duplicates)
 
 _CHECK_EVERY = 8
+# candidate width above which the occlusion distances are computed one
+# (M, C) row per selection step instead of as one (M, C, C) matrix
+WIDE_PRUNE_C = 512
 
 
 def robust_prune_rows(state: GraphState, cfg: ANNConfig, p_vecs, cand_ids,
@@ -56,9 +64,12 @@ def robust_prune_rows(state: GraphState, cfg: ANNConfig, p_vecs, cand_ids,
         d_p = torch.where(torch.isfinite(cand_dists), cand_dists, d_p)
     big = torch.full_like(d_p, BIG)
     d_p = torch.where(ids >= 0, d_p, big)
-    # adv[m, j, u] = alpha * d(x_u, x_j), x_j the selected candidate
-    adv = alpha_times(cfg, be.pair_dists(cfg, cand_vecs, cand_norms,
-                                         cand_vecs, cand_norms))
+    wide = c > WIDE_PRUNE_C
+    if not wide:
+        # adv[m, j, u] = alpha * d(x_u, x_j), x_j the selected candidate
+        adv = alpha_times(cfg, be.pair_dists(cfg, cand_vecs, cand_norms,
+                                             cand_vecs, cand_norms))
+    rows_m = torch.arange(m, device=dev)
     alive = ids >= 0
     # selection order per row, INVALID where a step selects nothing; a
     # stable compaction at the end is the reference's ``out[n_out]`` writes
@@ -73,7 +84,14 @@ def robust_prune_rows(state: GraphState, cfg: ANNConfig, p_vecs, cand_ids,
         ok = val < BIG
         jj = j[:, None]
         sel[:, step] = torch.where(ok, ids.gather(1, jj)[:, 0], none)
-        keep = torch.gather(adv, 1, jj[:, :, None].expand(-1, 1, c))[:, 0]
+        if wide:
+            # one (M, C) row: alpha * d(x_u, x_j) for this step's x_j
+            keep = alpha_times(cfg, be.pair_dists(
+                cfg, cand_vecs[rows_m, j][:, None], cand_norms.gather(1, jj),
+                cand_vecs, cand_norms))[:, 0]
+        else:
+            keep = torch.gather(adv, 1,
+                                jj[:, :, None].expand(-1, 1, c))[:, 0]
         alive &= (keep > d_p) | ~ok[:, None]
         alive.scatter_(1, jj, False)
     return compact_row(sel)

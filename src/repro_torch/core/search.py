@@ -133,17 +133,23 @@ def greedy_search(state: GraphState, cfg: ANNConfig, q: torch.Tensor, *,
 
 
 def search_batch(state: GraphState, cfg: ANNConfig, queries: torch.Tensor,
-                 *, k: int, l: int) -> SearchResult:
+                 *, k: int, l: int, max_visits: Optional[int] = None,
+                 starts: Optional[torch.Tensor] = None) -> SearchResult:
     """Batched greedy search over a (B, dim) query batch through the shared
     hop loop of ``core/search_batched.py``.  B is padded to the next power
     of two with masked lanes, as the reference buckets it (a masked lane
-    starts empty and costs no hops); the padding is sliced off."""
+    starts empty and costs no hops); the padding is sliced off.
+    ``starts`` (i32[B]) gives each query its own entry point."""
     from .search_batched import batched_greedy_search, pad_batch
 
     b = queries.shape[0]
     qs = pad_batch(queries, b)
     valid = torch.arange(qs.shape[0], device=qs.device) < b
-    res = batched_greedy_search(state, cfg, qs, k=k, l=l, valid=valid)
+    if starts is not None:
+        starts = pad_batch(starts.to(device=qs.device, dtype=torch.int32), b)
+    res = batched_greedy_search(state, cfg, qs, k=k, l=l,
+                                max_visits=max_visits, valid=valid,
+                                starts=starts)
     if qs.shape[0] != b:
         res = SearchResult(*[x[:b] for x in res])
     return res

@@ -182,11 +182,15 @@ def batched_greedy_search(state: GraphState, cfg: ANNConfig,
                           queries: torch.Tensor, *, k: int, l: int,
                           max_visits: Optional[int] = None,
                           distance_fn: Optional[BatchedDistanceFn] = None,
-                          valid: Optional[torch.Tensor] = None
+                          valid: Optional[torch.Tensor] = None,
+                          starts: Optional[torch.Tensor] = None
                           ) -> SearchResult:
     """GreedySearch (Algorithm 1) for B queries in one shared hop loop.
     ``valid`` (bool[B]) masks whole lanes out: a masked lane starts with an
-    empty beam and returns all-INVALID results.
+    empty beam and returns all-INVALID results.  ``starts`` (i32[B]) gives
+    each lane its own entry point (default: the state's ``start`` for
+    all); each lane then traverses exactly as ``greedy_search`` from its
+    start (HNSW's per-query descent).
 
     When ``cfg.quantized`` is set and the state carries a quant store, the
     hops traverse on int8 traversal-tier distances
@@ -212,7 +216,10 @@ def batched_greedy_search(state: GraphState, cfg: ANNConfig,
         dist_fn = distance_fn or backend.dists_to_ids_batched
 
     b = queries.shape[0]
-    starts = state.start.reshape(1).expand(b).to(torch.int32)
+    if starts is None:
+        starts = state.start.reshape(1).expand(b).to(torch.int32)
+    else:
+        starts = starts.to(device=dev, dtype=torch.int32).reshape(b)
     if valid is not None:
         starts = torch.where(valid, starts, torch.full_like(starts, INVALID))
     d0 = dist_fn(state, cfg, queries, starts[:, None].contiguous())[:, 0]

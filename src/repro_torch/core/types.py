@@ -176,6 +176,16 @@ def navigable(state: GraphState) -> torch.Tensor:
     return state.active | state.tombstone
 
 
+def row_count(rows: torch.Tensor) -> torch.Tensor:
+    """Valid entries along the last axis (i32)."""
+    return (rows >= 0).sum(-1).to(torch.int32)
+
+
+def row_contains(rows: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Whether each row (last axis) holds its id in ``u`` (one per row)."""
+    return (rows == u.unsqueeze(-1)).any(-1)
+
+
 def compact_row(rows: torch.Tensor) -> torch.Tensor:
     """Move valid entries to the front of each row, preserving order."""
     order = torch.sort((rows < 0).to(torch.int8), dim=-1, stable=True)[1]
@@ -184,12 +194,14 @@ def compact_row(rows: torch.Tensor) -> torch.Tensor:
 
 def mask_duplicates(ids: torch.Tensor) -> torch.Tensor:
     """Replace duplicate ids along the last axis (keep the first occurrence)
-    with INVALID; also INVALID-ates negative ids.  O(C^2) per row."""
-    c = ids.shape[-1]
-    eq = ids.unsqueeze(-1) == ids.unsqueeze(-2)
-    earlier = torch.ones((c, c), dtype=torch.bool,
-                         device=ids.device).tril(-1)
-    dup = (eq & earlier).any(-1)
+    with INVALID; also INVALID-ates negative ids.  A stable sort finds the
+    duplicates (equal ids keep their order, so the first occurrence leads
+    its run): O(C log C) per row, which an Alg-4 splice of C = r + r^2
+    candidates needs."""
+    srt, order = torch.sort(ids, dim=-1, stable=True)
+    dup_sorted = torch.zeros_like(srt, dtype=torch.bool)
+    dup_sorted[..., 1:] = srt[..., 1:] == srt[..., :-1]
+    dup = torch.zeros_like(dup_sorted).scatter_(-1, order, dup_sorted)
     return torch.where(dup | (ids < 0), torch.full_like(ids, INVALID), ids)
 
 

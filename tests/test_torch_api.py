@@ -7,6 +7,10 @@ and reinserts, all through ``apply(policy="ip")``; the whole ``IndexState``
 equals the reference's after every step (bitwise on grid data), and
 ``search`` / ``graph_recall`` agree.  A state built by JAX and carried over
 with ``repro_torch.convert`` continues in the port exactly as in JAX.
+A batched insert into an empty index (new, or emptied by deletes and a
+sweep) returns what the reference returns, and so do the lane-semantics
+probes: re-insert of a still-mapped id, duplicate delete lanes and a batch
+that deletes its own insert, serial and batched.
 """
 import numpy as np
 import pytest
@@ -18,6 +22,7 @@ from torch_parity import assert_field, assert_index_equal, cfg_pair, \
 
 from repro.core import api as japi
 from repro.core import recall as jrecall
+from repro.core.types import KIND_DELETE, KIND_INSERT
 from repro.core.types import init_index_state as j_init
 from repro_torch import convert
 from repro_torch.core import api as tapi
@@ -25,6 +30,7 @@ from repro_torch.core import recall as trecall
 from repro_torch.core.types import init_index_state as t_init
 
 DIM = 24
+INVALID_ID = -1
 
 
 def _data(kind, metric):
@@ -158,3 +164,66 @@ def test_bad_lanes_are_no_ops():
                                 device="cpu")
     res = p._apply(jb, tb, {})
     assert res.ok.tolist() == [False, True, True, False]
+
+
+@pytest.mark.parametrize("lanes", [5, 68])
+def test_batched_insert_into_empty_index(lanes):
+    """Padded lanes after the last valid one point the free-stack pop at
+    ``free_top == n_cap``; the reference clamps that read."""
+    data, _ = _data("grid", "l2")
+    p = Pair("l2", "grid")
+    res = p.insert(np.arange(lanes), data)
+    assert res.ok[:lanes].all() and not res.ok[lanes:].any()
+
+
+@pytest.mark.parametrize("lanes", [5, 68])
+def test_batched_insert_after_all_deleted_and_swept(lanes):
+    data, _ = _data("grid", "l2")
+    p = Pair("l2", "grid")
+    p.insert(np.arange(192), data, sequential=True)
+    p.delete(np.arange(192), sequential=True)
+    assert p.consolidate()
+    assert int(p.ts.graph.free_top) == p.tcfg.n_cap
+    res = p.insert(np.arange(200, 200 + lanes), data)
+    assert res.ok[:lanes].all()
+
+
+def _probe_batches(probe, data):
+    """(jax batch, torch batch) of one lane-semantics probe."""
+    if probe == "reinsert_mapped":
+        ids = np.array([3, 5, 70])
+        return (japi.insert_batch(ids, data[100 + ids]),
+                tapi.insert_batch(ids, data[100 + ids], device="cpu"))
+    if probe == "duplicate_deletes":
+        ids = np.array([7, 7, 9, 9, 11])
+        return (japi.delete_batch(ids, DIM),
+                tapi.delete_batch(ids, DIM, device="cpu"))
+    kind = [KIND_INSERT, KIND_DELETE, KIND_INSERT, KIND_DELETE]
+    ext = [90, 90, 91, 4]
+    vec = np.stack([data[90], np.zeros(DIM, np.float32), data[91],
+                    np.zeros(DIM, np.float32)])
+    return (japi.pad_update_batch(japi.make_update_batch(kind, ext, vec)),
+            tapi.pad_update_batch(tapi.make_update_batch(kind, ext, vec,
+                                                         device="cpu")))
+
+
+@pytest.mark.parametrize("sequential", [True, False])
+@pytest.mark.parametrize("probe", ["reinsert_mapped", "duplicate_deletes",
+                                   "delete_own_insert"])
+def test_lane_semantics_probes(probe, sequential):
+    data, q = _data("grid", "l2")
+    p = Pair("l2", "grid")
+    p.insert(np.arange(80), data, sequential=True)
+    res = p._apply(*_probe_batches(probe, data), dict(sequential=sequential))
+    ok = res.ok.tolist()
+    if probe == "duplicate_deletes":
+        # serial lanes see the earlier delete; the batched phase judges
+        # every lane against the pre-batch graph, as the reference does
+        assert ok[:5] == ([True, False, True, False, True] if sequential
+                          else [True] * 5)
+    elif probe == "delete_own_insert":
+        assert ok[:4] == [True, True, True, True]
+        assert int(p.ts.ext2slot[90]) == INVALID_ID
+    else:
+        assert ok[:3] == [True, True, True]
+    p.search(q)

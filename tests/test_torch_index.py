@@ -113,7 +113,7 @@ def test_exception_contracts():
     ti.recall(data[:4])
     assert ti.counters.n_queries == q0 and ti.eval_counters.n_queries == 4
     with pytest.raises(ValueError):
-        TIndex(ti.cfg, mode="fresh", device="cpu")
+        TIndex(ti.cfg, mode="nope", device="cpu")
     with pytest.raises(ValueError):
         TIndex(ti.cfg, max_external_id=0, device="cpu")
     for call in (lambda: ti.apply_segments([]), lambda: ti.save(None, 0),
@@ -123,7 +123,7 @@ def test_exception_contracts():
     rb = t_runbook("sliding_window", n=40, dim=DIM, t_max=4, seed=0)
     with pytest.raises(NotImplementedError):
         t_run(ti, rb, segmented=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         t_run(ti, rb, baseline="hnsw")
     with pytest.raises(ValueError):
         t_run(ti, rb, baseline="nope")
