@@ -51,7 +51,21 @@ Phases, any failure exits non-zero:
      with nothing pending after any delete and no such edge, HNSW reusing
      tombstoned slots; updates/s, QPS, launches and peak memory of each.
      Phase 2 also holds kernels 3 and 2 at the HNSW shapes (r = 96 with
-     two staging rounds, and r = 48 at l = 1).
+     two staging rounds, and r = 48 at l = 1);
+  6. whole-segment update streams and durability at full width (a
+     10^6-slot f32 handle with 1,024 live points):
+     (a) 16 kind-major ops of 32 inserts and 32 deletes through
+     ``run_segments(plan_segments(..., max_t=8))`` against ``apply`` plus
+     the trigger op by op, for ip, fresh and local: every leaf and result
+     row identical, a mid-segment trigger for ip and fresh, nothing
+     pending under local; (b) ``run_runbook(segmented=True)`` against the
+     per-op ``run_runbook`` (ip, serial updates, a 256-point sliding
+     window): the same evals, counters and final state; (c)
+     ``run_segments_supervised`` on (a)'s ip plan with a failure and a
+     kill inside a save, bitwise at (a)'s end, and a
+     ``StreamingIndex.save`` / ``restore`` round trip onto the card:
+     identical leaves and a 1,024-query search; seconds per save and
+     restore and bytes per checkpoint.
 
 Prints the kernels line, the card's name and power limit, and last the
 ``{"ok": true, "device": ...}`` line; the full record goes to
@@ -1470,6 +1484,337 @@ def policy_engines_agree(seed, n_pts=480, n_del=160):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6: whole-segment update streams and durability
+# ---------------------------------------------------------------------------
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def segment_start(seed, live, n_new, n_queries=1024):
+    """A 10^6-slot f32 handle with ``live`` points (serial to 2 l_build,
+    then batched windows of 256), the data (``live + n_new`` rows) and
+    1,024 queries."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (ANNConfig, apply, init_index_state,
+                                  insert_batch, make_dataset)
+
+    cfg = ANNConfig(dim=128, n_cap=1_000_000)
+    data, queries = make_dataset(live + n_new, 128, "l2",
+                                 n_queries=n_queries, seed=seed + 13)
+    state = init_index_state(cfg, max_external_id=len(data))
+    boot = 2 * cfg.l_build
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lo, hi, seq in [(0, boot, True)] + [
+            (lo, min(lo + 256, live), False) for lo in range(boot, live, 256)]:
+        ids = np.arange(lo, hi)
+        state, res = apply(state, cfg, insert_batch(ids, data[ids]),
+                           sequential=seq)
+        check(bool(res.ok[:len(ids)].all()), "phase 6: bootstrap failed")
+    torch.cuda.synchronize()
+    check(int(state.graph.n_active) == live, "phase 6: bootstrap count")
+    return cfg, state, data, queries, time.perf_counter() - t0
+
+
+def per_op_loop(state, cfg, plan, policy):
+    """The per-op path a segment plan must equal: ``apply`` then the
+    policy's trigger after every real op (ip, local: the sweep at once;
+    fresh: the flag, and Alg 4 at the segment boundary when one fired).
+    Returns the state and, per segment, the ``ApplyResult`` rows and the
+    trigger of each op."""
+    from repro_torch.core import apply, consolidate_if_needed, get_policy
+    from repro_torch.core.types import UpdateBatch
+
+    pol = get_policy(policy)
+    rows = []
+    for seg in plan.segments:
+        results, fired = [], []
+        for t in range(seg.n_ops):
+            op = UpdateBatch(*(f[t] for f in seg.ops))
+            state, res = apply(state, cfg, op, policy=policy,
+                               split=seg.split)
+            results.append(res)
+            if pol.device_consolidation:
+                state, did = consolidate_if_needed(state, cfg,
+                                                   policy=policy)
+                fired.append(bool(did))
+            else:
+                fired.append(bool(pol.should_consolidate_device(
+                    cfg, state.graph)))
+            if policy == "local":
+                check(int(state.graph.n_pending) == 0,
+                      "phase 6a: local left a slot pending")
+        if not pol.device_consolidation and any(fired):
+            state = state._replace(graph=pol.consolidate(state.graph, cfg))
+        rows.append((results, fired))
+    return state, rows
+
+
+def segments_agree(cfg, start, data, live, n_ops=16, lanes=32, max_t=8):
+    """6a: 16 kind-major ops of 32 inserts and 32 deletes through
+    ``run_segments(plan_segments(..., max_t=8))`` (batched updates) and,
+    on a clone, through the per-op loop, for ip, fresh and local: every
+    leaf and every result row identical, the pad rows applied nothing,
+    the trigger fired mid-segment for ip and fresh, local owed nothing."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (clone_state, mixed_update_batch,
+                                  plan_segments, run_segments)
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(live)
+    dels = rng.permutation(live)[:n_ops * lanes]
+    steps, splits = [], []
+    for t in range(n_ops):
+        ins = np.arange(live + t * lanes, live + (t + 1) * lanes)
+        b, split = mixed_update_batch(ins, data[ins],
+                                      dels[t * lanes:(t + 1) * lanes], 128)
+        steps.append(b)
+        splits.append(split)
+    plan = plan_segments(steps, splits=splits, max_t=max_t)
+    out = {"n_ops": n_ops, "lanes": lanes * 2, "split": splits[0],
+           "max_t": max_t, "consolidation_threshold":
+           cfg.consolidation_threshold,
+           "segments": [int(s.ops.kind.shape[0]) for s in plan.segments],
+           "pad_rows": sum(int(s.ops.kind.shape[0]) - s.n_ops
+                           for s in plan.segments)}
+    launches, finals = {}, {}
+    for policy in ("ip", "fresh", "local"):
+        seg_st, loop_st = clone_state(start), clone_state(start)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seg_st, results = run_segments(seg_st, cfg, plan, policy=policy)
+        torch.cuda.synchronize()
+        seg_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        add_counts(launches, counts)
+        t0 = time.perf_counter()
+        loop_st, rows = per_op_loop(loop_st, cfg, plan, policy)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        bad = [p for p, same in differing_leaves(seg_st, loop_st, "state")
+               if not same]
+        check(not bad, f"phase 6a: {policy} segments and the per-op loop "
+                       f"differ in {bad}")
+        fired_at = []
+        for i, (seg, res, (loop_res, fired)) in enumerate(
+                zip(plan.segments, results, rows)):
+            for t, r in enumerate(loop_res):
+                for f in ("slot", "ok", "n_comps"):
+                    check(torch.equal(getattr(res, f)[t], getattr(r, f)),
+                          f"phase 6a: {policy} segment {i} row {t}: {f}")
+            flag = res.consolidated if policy != "fresh" \
+                else res.needs_consolidation
+            other = res.needs_consolidation if policy != "fresh" \
+                else res.consolidated
+            check(flag[:seg.n_ops].tolist() == fired and not bool(
+                other.any()), f"phase 6a: {policy} segment {i} triggers "
+                              f"{flag.tolist()} vs per-op {fired}")
+            check(not bool(res.ok[seg.n_ops:].any()),
+                  f"phase 6a: {policy} a pad row applied an op")
+            fired_at += [(i, t) for t, f in enumerate(fired) if f]
+        if policy == "local":
+            check(not fired_at and int(seg_st.graph.n_pending) == 0,
+                  f"phase 6a: local triggered at {fired_at}")
+        else:
+            check(any(t < plan.segments[i].n_ops - 1 for i, t in fired_at),
+                  f"phase 6a: {policy} never triggered mid-segment "
+                  f"({fired_at})")
+        out[policy] = {"segment_ms_per_op": seg_s / n_ops * 1e3,
+                       "per_op_ms_per_op": loop_s / n_ops * 1e3,
+                       "fired_at": fired_at, "launches": counts,
+                       "n_active": int(seg_st.graph.n_active),
+                       "identical": True}
+        log(f"6a {policy}: segments {seg_s / n_ops * 1e3:.1f} ms/op, "
+            f"per-op {loop_s / n_ops * 1e3:.1f} ms/op, triggers at "
+            f"{fired_at}, launches {counts}")
+        finals[policy] = seg_st
+        del loop_st
+    for name in ("gather_distance_batched", "beam_hop_fused"):
+        check(launches.get(name, 0) > 0,
+              f"phase 6a: kernel {name} never launched by the segments")
+    return out, plan, finals["ip"], launches
+
+
+def segmented_runbook_agrees(seed, n=256, t_max=16, eval_every=4):
+    """6b: ``run_runbook(segmented=True)`` against the per-op
+    ``run_runbook`` on ``StreamingIndex(mode="ip", batch_updates=False)``:
+    the same evals, counters (seconds aside) and final state."""
+    import torch
+
+    from repro_torch.core import (ANNConfig, StreamingIndex, run_runbook,
+                                  sliding_window_runbook)
+    from repro_torch.kernels import ops
+
+    rb = sliding_window_runbook(n=n, dim=128, t_max=t_max, seed=seed)
+    cfg = ANNConfig(dim=128, n_cap=1_000_000)
+    reps, idxs, walls, launches = {}, {}, {}, {}
+    for segmented in (True, False):
+        idx = StreamingIndex(cfg, mode="ip", max_external_id=n)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reps[segmented] = run_runbook(idx, rb, k=10, eval_every=eval_every,
+                                      segmented=segmented)
+        torch.cuda.synchronize()
+        walls[segmented] = time.perf_counter() - t0
+        if segmented:
+            launches = ops.launch_counts()
+        idxs[segmented] = idx
+    seg, per = reps[True], reps[False]
+    evals = [[(m.step, m.n_active, m.recall) for m in r.steps]
+             for r in (seg, per)]
+    check(evals[0] == evals[1],
+          f"phase 6b: evals differ: {evals[0]} vs {evals[1]}")
+    cs, cp = dataclasses.asdict(seg.counters), dataclasses.asdict(
+        per.counters)
+    counts = [f for f in cs if not f.endswith("_s")]
+    diff = {f: (cs[f], cp[f]) for f in counts if cs[f] != cp[f]}
+    check(not diff, f"phase 6b: counters differ: {diff}")
+    bad = [p for p, same in differing_leaves(idxs[True].istate,
+                                             idxs[False].istate, "state")
+           if not same]
+    check(not bad, f"phase 6b: final states differ in {bad}")
+    out = {"runbook": {"name": rb.name, "n": n, "t_max": t_max,
+                       "eval_every": eval_every, "segment_t": 32},
+           "evals": evals[0], "avg_recall": seg.avg_recall,
+           "counters": {f: cs[f] for f in counts},
+           "segment_s": cs["segment_s"],
+           "per_op_insert_s": cp["insert_s"],
+           "per_op_delete_s": cp["delete_s"],
+           "segmented_wall_s": walls[True], "per_op_wall_s": walls[False],
+           "launches": launches, "identical": True}
+    log(f"6b: segment_s {cs['segment_s']:.2f} vs insert_s + delete_s "
+        f"{cp['insert_s'] + cp['delete_s']:.2f}, avg Recall@10 "
+        f"{seg.avg_recall:.4f}, launches {launches}")
+    return out, launches
+
+
+def timed_manager(directory, keep):
+    """A ``CheckpointManager`` that records the seconds of each completed
+    ``save`` and each ``load``."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    class Timed(CheckpointManager):
+        def save(self, *a, **kw):
+            t0 = time.perf_counter()
+            path = super().save(*a, **kw)
+            self.save_s.append(time.perf_counter() - t0)
+            return path
+
+        def load(self, *a, **kw):
+            t0 = time.perf_counter()
+            got = super().load(*a, **kw)
+            self.load_s.append(time.perf_counter() - t0)
+            return got
+
+    mgr = Timed(directory, keep=keep)
+    mgr.save_s, mgr.load_s = [], []
+    return mgr
+
+
+def durability_agrees(cfg, start, plan, ref_ip, queries):
+    """6c: ``run_segments_supervised`` on 6a's ip plan with a failure
+    before segment 1 and a kill inside the save of step 2 ends bitwise at
+    6a's uninterrupted state; ``StreamingIndex.save`` / ``restore`` onto
+    the card round-trips every leaf and a 1,024-query search."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (StreamingIndex, clone_state,
+                                  run_segments_supervised)
+    from repro_torch.kernels import ops
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    out = {}
+    try:
+        mgr = timed_manager(tmp / "supervised", keep=2)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        st, _, info = run_segments_supervised(
+            mgr, clone_state(start), cfg, plan, policy="ip",
+            checkpoint_every=1, fail_at={1: 1},
+            crash_in_save={2: "leaf:3"})
+        torch.cuda.synchronize()
+        out["supervised_s"] = time.perf_counter() - t0
+        bad = [p for p, same in differing_leaves(st, ref_ip, "state")
+               if not same]
+        check(info["restarts"] == 2 and not bad,
+              f"phase 6c: supervised run {info} differs in {bad}")
+        step_dir = tmp / "supervised" / f"step_{mgr.latest():08d}"
+        out.update(restarts=info["restarts"], save_s=mgr.save_s,
+                   load_s=mgr.load_s,
+                   checkpoint_bytes=sum(f.stat().st_size
+                                        for f in step_dir.iterdir()))
+        del st
+
+        idx = StreamingIndex(cfg, mode="ip",
+                             max_external_id=int(ref_ip.ext2slot.shape[0]))
+        idx.istate = ref_ip
+        rt = tmp / "round_trip"
+        from repro_torch.checkpoint import CheckpointManager
+
+        t0 = time.perf_counter()
+        idx.save(CheckpointManager(rt, keep=2), 1)
+        out["round_trip_save_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        idx2, _ = StreamingIndex.restore(CheckpointManager(rt, keep=2), cfg)
+        torch.cuda.synchronize()
+        out["round_trip_restore_s"] = time.perf_counter() - t0
+        check(idx2.state.vectors.is_cuda, "phase 6c: restored off the card")
+        bad = [p for p, same in differing_leaves(idx.istate, idx2.istate,
+                                                 "state") if not same]
+        check(not bad, f"phase 6c: the round trip differs in {bad}")
+        a, b = idx.search(queries, k=10), idx2.search(queries, k=10)
+        check(all(np.array_equal(x, y) for x, y in zip(a, b)),
+              "phase 6c: searches differ after the round trip")
+        out["launches"] = ops.launch_counts()
+        out["queries"] = len(queries)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"6c: restarts {out['restarts']}, saves {out['save_s']} s, loads "
+        f"{out['load_s']} s, {out['checkpoint_bytes']} bytes a checkpoint; "
+        f"round trip save {out['round_trip_save_s']:.2f} s, restore "
+        f"{out['round_trip_restore_s']:.2f} s")
+    return out
+
+
+def segments_path(seed, live=1024):
+    """Phase 6: the segment path and durability at full width."""
+    t0 = time.perf_counter()
+    cfg, start, data, queries, boot_s = segment_start(seed, live, 16 * 32)
+    out = {"live": live, "bootstrap_s": boot_s}
+    launches = {}
+    out["6a"], plan, ref_ip, counts = segments_agree(cfg, start, data, live)
+    add_counts(launches, counts)
+    out["6a_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["6c"] = durability_agrees(cfg, start, plan, ref_ip, queries)
+    add_counts(launches, out["6c"]["launches"])
+    out["6c_s"] = time.perf_counter() - t0
+    del start, ref_ip
+    t0 = time.perf_counter()
+    out["6b"], counts = segmented_runbook_agrees(seed)
+    add_counts(launches, counts)
+    out["6b_s"] = time.perf_counter() - t0
+    out["launches"] = launches
+    for name in F32_PATH:
+        check(launches.get(name, 0) > 0,
+              f"kernel {name} never launched on the segment path")
+    return out
+
+
 def compare_runs(key, runs, kernels):
     """The cuda and torch runs of one stream: every state leaf and result
     identical, and ``kernels`` launched by the cuda run."""
@@ -1490,15 +1835,15 @@ def compare_runs(key, runs, kernels):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--live", type=int, default=4096,
+    ap.add_argument("--live", type=int, default=2048,
                     help="points linked into the f32 path's 10^6-slot table")
-    ap.add_argument("--runbook-n", type=int, default=4096,
+    ap.add_argument("--runbook-n", type=int, default=1024,
                     help="points of the quantized path's sliding window "
                          "(at most half of them live)")
-    ap.add_argument("--policy-n", type=int, default=4096,
+    ap.add_argument("--policy-n", type=int, default=1024,
                     help="points of the fresh and local paths' sliding "
                          "window")
-    ap.add_argument("--hnsw-n", type=int, default=1024,
+    ap.add_argument("--hnsw-n", type=int, default=512,
                     help="points of the HNSW path's sliding window")
     args = ap.parse_args(argv)
 
@@ -1569,6 +1914,10 @@ def main(argv=None):
     t0 = time.perf_counter()
     record["hnsw"] = hnsw_path(args.seed, args.hnsw_n)
     record["hnsw"]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    record["segments"] = segments_path(args.seed)
+    record["segments"]["wall_s"] = time.perf_counter() - t0
+    log(f"phase 6: {record['segments']['wall_s']:.1f} s")
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1587,7 +1936,7 @@ def main(argv=None):
             "launches": record[path]["launches"].get(name, 0),
             "launches_by_path": {p: record[p]["launches"].get(name, 0)
                                  for p in ("main", "quant", "fresh", "local",
-                                           "hnsw")},
+                                           "hnsw", "segments")},
             "max_abs_err": g.get("max_abs_err"),
             "grid_bitwise": name in grid,
             "ms": g.get("ms"), "public_ms": g.get("public_ms"),

@@ -7,7 +7,7 @@ backends resolve by the device of the state's tensors: the hand-written
 CUDA kernels (``repro_torch/csrc``) on the card, their plain PyTorch
 versions on the CPU.
 """
-from . import configs, core, kernels  # noqa: F401
+from . import checkpoint, configs, core, ft, kernels  # noqa: F401
 from .core import (  # noqa: F401
     ANNConfig,
     IndexState,

@@ -1,14 +1,19 @@
 # IP-DiskANN's streaming loop (insert, in-place delete, beam search,
 # recall), the fresh and local update policies, the HNSW baseline, the
-# StreamingIndex shell with capacity growth, the runbook driver and the
-# int8 quantized tier, on PyTorch tensors, with hand-written CUDA kernels
-# on the card.
+# StreamingIndex shell with capacity growth, whole-segment update streams,
+# durability (checkpoint, restore, supervised replay), the runbook driver
+# and the int8 quantized tier, on PyTorch tensors, with hand-written CUDA
+# kernels on the card.
 from .api import (
     FreshDiskANNPolicy,
     IPDiskANNPolicy,
     LocalRepairPolicy,
+    Segment,
+    SegmentPlan,
     UpdatePolicy,
     apply,
+    apply_segment,
+    auto_unroll,
     available_policies,
     clone_state,
     consolidate_if_needed,
@@ -20,7 +25,11 @@ from .api import (
     maybe_consolidate,
     mixed_update_batch,
     pad_update_batch,
+    plan_segments,
     register_policy,
+    run_segments,
+    segment_scan,
+    segment_step,
 )
 from .api import search as search_index
 from .backend import (
@@ -42,12 +51,16 @@ from .edges import remove_target_everywhere
 from .hnsw import HNSWConfig, HNSWIndex, HNSWState, init_hnsw
 from .index import EvalCounters, OpCounters, StreamingIndex
 from .insert import insert, insert_many
+from .persist import (CFG_CRITICAL, SCHEMA_VERSION, CheckpointMismatchError,
+                      restore_index, run_segments_supervised, save_index,
+                      validate_index_manifest)
 from .prune import robust_prune, robust_prune_rows
 from .quant import (QuantStore, dequantize_rows, init_quant_store,
                     quant_dists_to_ids_batched, quant_write_rows,
                     quantize_rows)
 from .recall import brute_force_topk, graph_recall, recall_at_k
-from .runbook import make_dataset, make_runbook, sliding_window_runbook
+from .runbook import (make_dataset, make_runbook, runbook_segment_plan,
+                      runbook_update_stream, sliding_window_runbook)
 from .search import SearchResult, greedy_search, search_batch
 from .search_batched import batched_greedy_search, resolved_hop_fused
 from .types import (
@@ -58,7 +71,11 @@ from .types import (
     ApplyResult,
     GraphState,
     IndexState,
+    SegmentResult,
     UpdateBatch,
     init_index_state,
     init_state,
+    noop_update_batch,
+    stack_update_batches,
+    take_update_lanes,
 )

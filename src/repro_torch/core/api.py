@@ -1,9 +1,13 @@
-"""The unified op-stream API (``repro/core/api.py``), the main-path part:
+"""The unified op-stream API (``repro/core/api.py``):
 ``apply(state, cfg, batch)`` for updates, ``search(state, cfg, queries)``
-for queries, the ``UpdatePolicy`` registry (``ip``, ``fresh``, ``local``)
-and the consolidation trigger.  The reference's ``consolidation_fields`` /
-``consolidate_narrow`` only keep the vector table out of a ``lax.cond``'s
-operands and have no counterpart here.
+for queries, the ``UpdatePolicy`` registry (``ip``, ``fresh``, ``local``),
+the consolidation trigger, and whole-segment update streams
+(``apply_segment`` over a (T, B) op tensor, ``plan_segments`` /
+``run_segments`` over an arbitrary op stream).  The reference's
+``consolidation_fields`` / ``consolidate_narrow`` only keep the vector
+table out of a ``lax.cond``'s operands, and its ``TRACE_COUNTER`` /
+``TRACE_UNROLL`` count JAX traces; eager PyTorch has neither, so they have
+no counterpart here.
 
 Semantics are the reference's, lane for lane: a mixed batch applies all
 insert lanes first (lane order), then all delete lanes (lane order), the
@@ -18,7 +22,8 @@ one share (mutated) tensors.  ``clone_state`` gives an independent copy.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -38,8 +43,11 @@ from .types import (
     ApplyResult,
     GraphState,
     IndexState,
+    SegmentResult,
     UpdateBatch,
     clip_ids,
+    noop_update_batch,
+    stack_update_batches,
 )
 
 
@@ -410,6 +418,168 @@ def maybe_consolidate(state: IndexState, cfg: ANNConfig, *,
 
 
 # ---------------------------------------------------------------------------
+# Whole-segment update streams
+# ---------------------------------------------------------------------------
+
+
+def auto_unroll(t: int, b: int) -> int:
+    """The reference's size-aware ``lax.scan`` unroll for a (T, B) segment:
+    deeper for narrow lanes, 1 past B = 256, capped by T.  The port's
+    segment loop accepts ``unroll`` and ignores it (eager PyTorch has no
+    scan to unroll); the table is kept so callers and plans carry the same
+    value in both packages."""
+    if t <= 1:
+        return 1
+    if b <= 16:
+        return min(8, t)
+    if b <= 64:
+        return min(4, t)
+    if b <= 256:
+        return min(2, t)
+    return 1
+
+
+def segment_scan(state: IndexState, cfg: ANNConfig, ops: UpdateBatch,
+                 pol: UpdatePolicy, sequential: bool, split: Optional[int],
+                 consolidate: bool = True):
+    """The body of ``apply_segment``: a loop over the T axis of ``ops`` that
+    runs the ``apply`` body (``_apply_impl``) on each op, then the policy's
+    trigger over the state's counters.  Device policies (ip, local) sweep
+    at once when it fires (``device_sweep``: one host read of the trigger
+    per op) and set ``consolidated[t]``; host policies (fresh) only set
+    ``needs_consolidation[t]``.  ``consolidate=False`` drops the trigger
+    (both flags stay False).
+
+    All-masked pad rows run through the same body: under fresh a trigger
+    that fired on the last real op fires again on each pad row, as in the
+    reference."""
+    rows = []
+    no = torch.tensor(False, device=state.ext2slot.device)
+    for t in range(ops.kind.shape[0]):
+        op = UpdateBatch(*(f[t] for f in ops))
+        state, res = _apply_impl(state, cfg, op, pol, sequential, split)
+        consolidated = needs = no
+        if consolidate:
+            trig = pol.should_consolidate_device(cfg, state.graph)
+            if pol.device_consolidation:
+                state = state._replace(
+                    graph=device_sweep(state.graph, cfg, pol, trig))
+                consolidated = trig
+            else:
+                needs = trig
+        rows.append((res.slot, res.ok, res.n_comps, consolidated, needs))
+    return state, SegmentResult(*(torch.stack(col) for col in zip(*rows)))
+
+
+def apply_segment(state: IndexState, cfg: ANNConfig, ops: UpdateBatch, *,
+                  policy: str = "ip", sequential: bool = False,
+                  split: Optional[int] = None, consolidate: bool = True,
+                  unroll: Optional[int] = None):
+    """Run a whole update-stream segment, an ``UpdateBatch`` with a leading
+    (T,) op axis.  Returns ``(IndexState, SegmentResult)``; op ``t`` is
+    exactly ``apply(state_t, cfg, ops[t], ...)`` followed by the policy's
+    trigger (see ``segment_scan``).  ``split`` is ``apply``'s kind-major
+    layout hint, common to every op.  The handle is updated in place, as by
+    ``apply``; ``unroll`` is accepted for the reference's signature and
+    ignored."""
+    return segment_scan(state, cfg, ops, get_policy(policy), sequential,
+                        split, consolidate)
+
+
+class Segment(NamedTuple):
+    """One bucket-padded op tensor of a ``SegmentPlan``."""
+
+    ops: UpdateBatch        # (T_bucket, B) stacked lanes
+    split: Optional[int]    # common kind-major split of every op (or None)
+    n_ops: int              # real ops; ops[n_ops:] are all-masked padding
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentPlan:
+    """An op stream chopped into segments: consecutive same-shape ops
+    grouped, each group's op axis padded to a power of two with all-masked
+    ops, groups capped at ``max_t``."""
+
+    segments: tuple  # tuple[Segment, ...]
+
+    @property
+    def n_ops(self) -> int:
+        return sum(s.n_ops for s in self.segments)
+
+
+def plan_segments(steps, *, splits=None, max_t: int = 64,
+                  keys=None) -> SegmentPlan:
+    """Chop a list of ``UpdateBatch``es into ``Segment``s.  Consecutive
+    steps share a segment only when their lane width, vector width, split
+    (``splits``: one per step) and grouping key (``keys``: one per step)
+    agree, up to ``max_t`` steps; each segment's T is padded to a power of
+    two (at most ``next_bucket(max_t)``) with ``noop_update_batch`` steps
+    on the steps' device."""
+    steps = list(steps)
+    if splits is None:
+        splits = [None] * len(steps)
+    if len(splits) != len(steps):
+        raise ValueError("one split per step required")
+    if keys is None:
+        keys = [None] * len(steps)
+    if len(keys) != len(steps):
+        raise ValueError("one key per step required")
+    max_t = max(1, max_t)
+
+    segments = []
+    i = 0
+    while i < len(steps):
+        b = steps[i].kind.shape[0]
+        dim = steps[i].vector.shape[1]
+        split, key = splits[i], keys[i]
+        j = i
+        while (j < len(steps) and j - i < max_t
+               and steps[j].kind.shape[0] == b
+               and steps[j].vector.shape[1] == dim
+               and splits[j] == split and keys[j] == key):
+            j += 1
+        group = steps[i:j]
+        t_bucket = min(next_bucket(len(group)), next_bucket(max_t))
+        dev = steps[i].kind.device
+        group = group + [noop_update_batch(b, dim, dev)
+                         for _ in range(t_bucket - len(group))]
+        segments.append(Segment(stack_update_batches(group), split, j - i))
+        i = j
+    return SegmentPlan(segments=tuple(segments))
+
+
+def segment_step(state: IndexState, cfg: ANNConfig, seg: Segment, *,
+                 policy: str = "ip", sequential: bool = False,
+                 unroll: Optional[int] = None):
+    """Apply ONE planned ``Segment``: ``apply_segment``, then the host
+    policy's pass (fresh: Alg 4) when any row of the segment raised
+    ``needs_consolidation``.  ``run_segments`` is a loop of it and
+    ``core/persist.py``'s supervised runner replays it after a restore."""
+    pol = get_policy(policy)
+    state, res = apply_segment(state, cfg, seg.ops, policy=policy,
+                               sequential=sequential, split=seg.split,
+                               unroll=unroll)
+    if not pol.device_consolidation and bool(
+            res.needs_consolidation.any()):
+        state = state._replace(graph=pol.consolidate(state.graph, cfg))
+    return state, res
+
+
+def run_segments(state: IndexState, cfg: ANNConfig, plan: SegmentPlan, *,
+                 policy: str = "ip", sequential: bool = False,
+                 unroll: Optional[int] = None, start: int = 0):
+    """Execute a ``SegmentPlan`` from segment ``start`` on (restore paths
+    replay a plan's tail).  Returns ``(state, [SegmentResult, ...])``, one
+    result per executed segment (rows ``[:n_ops]`` are the real ops)."""
+    results = []
+    for seg in plan.segments[start:]:
+        state, res = segment_step(state, cfg, seg, policy=policy,
+                                  sequential=sequential, unroll=unroll)
+        results.append(res)
+    return state, results
+
+
+# ---------------------------------------------------------------------------
 # The query front door
 # ---------------------------------------------------------------------------
 
@@ -428,9 +598,11 @@ def search(state: IndexState, cfg: ANNConfig, queries: torch.Tensor, *,
 
 
 __all__ = [
-    "FreshDiskANNPolicy", "IPDiskANNPolicy", "LocalRepairPolicy",
-    "UpdatePolicy", "apply", "available_policies",
-    "clone_state", "consolidate_if_needed", "delete_batch", "device_sweep",
-    "get_policy", "insert_batch", "make_update_batch", "maybe_consolidate",
-    "mixed_update_batch", "pad_update_batch", "register_policy", "search",
+    "FreshDiskANNPolicy", "IPDiskANNPolicy", "LocalRepairPolicy", "Segment",
+    "SegmentPlan", "UpdatePolicy", "apply", "apply_segment", "auto_unroll",
+    "available_policies", "clone_state", "consolidate_if_needed",
+    "delete_batch", "device_sweep", "get_policy", "insert_batch",
+    "make_update_batch", "maybe_consolidate", "mixed_update_batch",
+    "pad_update_batch", "plan_segments", "register_policy", "run_segments",
+    "search", "segment_scan", "segment_step",
 ]

@@ -3,9 +3,9 @@ a ``StreamingIndex`` and record per-step recall, distance computations and
 throughput (the paper's §4 loop, Figure 1).
 
 The per-op path, for a ``StreamingIndex`` under any policy or, with
-``baseline="hnsw"``, an ``HNSWIndex``.  ``segmented=True`` waits for
-compiled segments (ROADMAP Queue 1, slice 10) and raises
-``NotImplementedError``.
+``baseline="hnsw"``, an ``HNSWIndex``; and with ``segmented=True`` the
+segment path (``StreamingIndex.apply_segments``), one eval window at a
+time.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from .runbook import Runbook
+from .runbook import Runbook, runbook_update_stream
 
 
 @dataclasses.dataclass
@@ -58,12 +58,22 @@ class RunbookReport:
 
 def run_runbook(index, rb: Runbook, *, k: int = 10,
                 eval_every: int = 1, max_steps: Optional[int] = None,
-                segmented: bool = False, verbose: bool = False,
+                segmented: bool = False, segment_t: int = 32,
+                verbose: bool = False,
                 baseline: Optional[str] = None) -> RunbookReport:
     """Replay ``rb`` against ``index`` (a ``StreamingIndex``, or an
     ``HNSWIndex`` with ``baseline="hnsw"``): per step, the inserts then the
     deletes, and every ``eval_every``-th step a Recall@k evaluation over
-    the runbook's queries (booked into ``index.eval_counters``)."""
+    the runbook's queries (booked into ``index.eval_counters``).
+
+    ``segmented=True`` replays each eval window (step 0 alone, then
+    ``eval_every`` steps) as kind-major ops through
+    ``index.apply_segments(max_t=segment_t, sequential=True)``: evals fall
+    at the per-op path's steps and see the same applied prefix.  Fresh's
+    Alg 4 then lands on segment boundaries, and unknown delete ids are
+    silent no-ops rather than exceptions.  It needs
+    ``batch_updates=False`` (the batched shell's serial bootstrap has no
+    segment form) and refuses the hnsw baseline."""
     if baseline is not None:
         if baseline != "hnsw":
             raise ValueError(f"unknown baseline {baseline!r}")
@@ -79,9 +89,10 @@ def run_runbook(index, rb: Runbook, *, k: int = 10,
                 "the hnsw baseline is host-orchestrated per op: segmented "
                 "replay is not supported"
             )
-    if segmented:
-        raise NotImplementedError(
-            "segmented replay is not ported yet (ROADMAP Queue 1, slice 10)"
+    if segmented and index.batch_updates:
+        raise ValueError(
+            "segmented replay requires batch_updates=False: the batched "
+            "shell's serial-bootstrap windowing is per-op only"
         )
     metrics: List[StepMetrics] = []
     steps = rb.steps[:max_steps] if max_steps else rb.steps
@@ -105,13 +116,26 @@ def run_runbook(index, rb: Runbook, *, k: int = 10,
                   f"active={m.n_active:6d} recall@{k}={m.recall:.3f} "
                   f"comps/q={m.comps_per_query:.0f}")
 
-    for t, step in enumerate(steps):
-        if len(step.insert_ids):
-            index.insert(step.insert_ids, rb.data[step.insert_ids])
-        if len(step.delete_ids):
-            index.delete(step.delete_ids)
-        if t % eval_every == 0:
-            eval_at(t)
+    if segmented:
+        t = 0
+        while t < len(steps):
+            window = steps[t:t + (1 if t == 0 else eval_every)]
+            batches, splits = runbook_update_stream(rb, window,
+                                                    device=index.device)
+            index.apply_segments(batches, splits=splits, max_t=segment_t,
+                                 sequential=True)
+            t_last = t + len(window) - 1
+            if t_last % eval_every == 0:
+                eval_at(t_last)
+            t += len(window)
+    else:
+        for t, step in enumerate(steps):
+            if len(step.insert_ids):
+                index.insert(step.insert_ids, rb.data[step.insert_ids])
+            if len(step.delete_ids):
+                index.delete(step.delete_ids)
+            if t % eval_every == 0:
+                eval_at(t)
     evald = [m for m in metrics if m.step >= rb.eval_from]
     avg = float(np.mean([m.recall for m in evald])) if evald else float("nan")
     return RunbookReport(

@@ -15,9 +15,9 @@ books into ``eval_counters``, never into the serving ``counters``.
 
 Every registered update policy runs (``ip``, ``fresh``, ``local``); a
 delete ends with ``maybe_consolidate`` under the index's own policy.
-``apply_segments`` (compiled segments, ROADMAP Queue 1 slice 10) and
-``save`` / ``restore`` (durability, slice 12) raise
-``NotImplementedError``.
+``apply_segments`` runs an op stream as segments (``core/api.py::
+run_segments``); ``save`` / ``restore`` checkpoint the handle and the host
+counters (``core/persist.py``), in the reference's format.
 """
 from __future__ import annotations
 
@@ -29,11 +29,13 @@ import numpy as np
 import torch
 
 from .api import (apply, available_policies, delete_batch, get_policy,
-                  insert_batch, maybe_consolidate, search)
+                  insert_batch, maybe_consolidate, plan_segments,
+                  run_segments, search)
 from .grow import ensure_capacity
+from .persist import restore_index, save_index
 from .recall import brute_force_topk, recall_at_k
-from .types import ANNConfig, GraphState, IndexState, init_index_state, \
-    resolve_device
+from .types import KIND_INSERT, ANNConfig, GraphState, IndexState, \
+    init_index_state, resolve_device
 
 
 @dataclasses.dataclass
@@ -42,7 +44,7 @@ class OpCounters:
 
     insert_s: float = 0.0
     delete_s: float = 0.0        # includes consolidation (paper's accounting)
-    segment_s: float = 0.0       # whole-segment streams (not ported yet)
+    segment_s: float = 0.0       # whole-segment streams (mixed ops)
     search_s: float = 0.0
     n_inserts: int = 0
     n_deletes: int = 0
@@ -194,10 +196,43 @@ class StreamingIndex:
                 f"{ext_ids[~ok][:8].tolist()}"
             )
 
-    def apply_segments(self, *args, **kwargs):
-        raise NotImplementedError(
-            "compiled segments are not ported yet (ROADMAP Queue 1, slice 10)"
-        )
+    def apply_segments(self, steps, *, splits=None, max_t: int = 64,
+                       sequential: bool = False, unroll=None):
+        """Run a list of ``UpdateBatch`` ops as segments
+        (``core/api.py::run_segments``): the policy's trigger after every
+        op (ip, local: the sweep at once; fresh: Alg 4 at the segment
+        boundary when any op raised ``needs_consolidation``).
+
+        Books wall time into ``counters.segment_s`` and op counts and comps
+        from the handle's counters (applied ops: invalid lanes are silent
+        no-ops here, where ``insert`` / ``delete`` raise).  Returns the
+        per-segment ``SegmentResult`` list."""
+        # grow before planning, for the whole stream's insert demand
+        # (deletes inside the stream only return capacity)
+        self._ensure_capacity(sum(
+            int((s.valid & (s.kind == KIND_INSERT)).sum()) for s in steps))
+        plan = plan_segments(steps, splits=splits, max_t=max_t)
+        t0 = time.perf_counter()
+        st = self.istate
+        before = (int(st.n_inserts), int(st.n_deletes),
+                  int(st.insert_comps), int(st.delete_comps))
+        self.istate, results = run_segments(
+            self.istate, self.cfg, plan, policy=self.mode,
+            sequential=sequential, unroll=unroll)
+        _sync(self.device)
+        self.counters.segment_s += time.perf_counter() - t0
+        st = self.istate
+        self.counters.n_inserts += int(st.n_inserts) - before[0]
+        self.counters.n_deletes += int(st.n_deletes) - before[1]
+        self.counters.insert_comps += int(st.insert_comps) - before[2]
+        self.counters.delete_comps += int(st.delete_comps) - before[3]
+        if self.policy.device_consolidation:
+            self.counters.n_consolidations += sum(
+                int(r.consolidated.sum()) for r in results)
+        else:
+            self.counters.n_consolidations += sum(
+                bool(r.needs_consolidation.any()) for r in results)
+        return results
 
     def maybe_consolidate(self, force: bool = False) -> bool:
         t0 = time.perf_counter()
@@ -209,18 +244,50 @@ class StreamingIndex:
             self.counters.n_consolidations += 1
         return did
 
-    # -- durability (not ported yet) -----------------------------------------
+    # -- durability ----------------------------------------------------------
 
-    def save(self, *args, **kwargs):
-        raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP Queue 1, slice 12)"
-        )
+    def save(self, manager, step: int, *, extra: Optional[dict] = None,
+             on_event=None):
+        """Checkpoint the handle and the host accounting (``counters`` and
+        ``eval_counters`` ride the manifest's ``extra``).  Call between
+        updates."""
+        user = {
+            "mode": self.mode,
+            "batch_updates": self.batch_updates,
+            "counters": dataclasses.asdict(self.counters),
+            "eval_counters": dataclasses.asdict(self.eval_counters),
+        }
+        user.update(extra or {})
+        return save_index(manager, step, self.istate, self.cfg,
+                          policy=self.mode, extra=user, on_event=on_event)
 
     @classmethod
-    def restore(cls, *args, **kwargs):
-        raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP Queue 1, slice 12)"
+    def restore(cls, manager, cfg: ANNConfig, *, step=None, mode=None,
+                batch_updates: Optional[bool] = None,
+                backend: Optional[str] = None, device=None):
+        """Restore a ``StreamingIndex`` from the latest (or given) step
+        written by ``save`` (of either package) onto ``device`` (default:
+        the card).  Returns ``(index, step)``; the serving and eval
+        counters resume from the checkpointed values.  ``mode`` defaults
+        to the checkpoint's policy; given, it is validated against it
+        (``CheckpointMismatchError``)."""
+        step, istate, extra = restore_index(manager, cfg, step=step,
+                                            policy=mode, device=device)
+        meta, user = extra["index"], extra.get("user", {})
+        # the constructor's empty handle is replaced at once: it is
+        # allocated on the meta device, which holds no data
+        idx = cls(
+            cfg, mode=meta["policy"],
+            max_external_id=meta["max_external_id"],
+            batch_updates=(user.get("batch_updates", False)
+                           if batch_updates is None else batch_updates),
+            backend=backend, device="meta",
         )
+        idx.device = resolve_device(device)
+        idx.istate = istate
+        idx.counters = OpCounters(**user.get("counters", {}))
+        idx.eval_counters = EvalCounters(**user.get("eval_counters", {}))
+        return idx, step
 
     # -- queries -----------------------------------------------------------
 

@@ -210,3 +210,15 @@ def runbook_update_stream(rb: Runbook, steps: Optional[List[RunbookStep]]
         batches.append(batch)
         splits.append(split)
     return batches, splits
+
+
+def runbook_segment_plan(rb: Runbook,
+                         steps: Optional[List[RunbookStep]] = None, *,
+                         max_t: int = 64, device=None):
+    """A runbook (slice) straight to a ``SegmentPlan``: pure host-side
+    planning of op tensors on ``device`` (default: the card), the unit
+    ``core.persist.run_segments_supervised`` checkpoints and replays."""
+    from .api import plan_segments  # api does not import runbook
+
+    batches, splits = runbook_update_stream(rb, steps, device=device)
+    return plan_segments(batches, splits=splits, max_t=max_t)

@@ -119,6 +119,54 @@ class ApplyResult(NamedTuple):
     n_comps: torch.Tensor  # i32[B]
 
 
+class SegmentResult(NamedTuple):
+    """Per-op stacked outcome of one ``apply_segment`` call (leading axis
+    ``T`` = ops in the segment; lane axes as in ``ApplyResult``).  Rows are
+    copies, never views of the state the next op writes."""
+
+    slot: torch.Tensor                 # i32[T, B]
+    ok: torch.Tensor                   # bool[T, B]
+    n_comps: torch.Tensor              # i32[T, B]
+    consolidated: torch.Tensor         # bool[T]  the device pass ran after
+                                       #          the op (ip, local)
+    needs_consolidation: torch.Tensor  # bool[T]  the trigger fired under a
+                                       #          host policy (fresh): the
+                                       #          caller consolidates at the
+                                       #          segment boundary
+
+
+def stack_update_batches(steps) -> UpdateBatch:
+    """Stack ``T`` same-width ``UpdateBatch``es into one (T, B) op tensor
+    (the payload of ``apply_segment``)."""
+    widths = {s.kind.shape[0] for s in steps}
+    if len(widths) != 1:
+        raise ValueError(f"segment steps must share one lane width: {widths}")
+    return UpdateBatch(*[torch.stack(arrs) for arrs in zip(*steps)])
+
+
+def noop_update_batch(b: int, dim: int, device=None) -> UpdateBatch:
+    """An all-masked ``UpdateBatch`` (T-axis padding for segment buckets),
+    on ``device`` (default: the card)."""
+    dev = resolve_device(device)
+    return UpdateBatch(
+        kind=torch.full((b,), KIND_INSERT, dtype=torch.int32, device=dev),
+        ext_id=torch.full((b,), INVALID, dtype=torch.int32, device=dev),
+        vector=torch.zeros((b, dim), dtype=torch.float32, device=dev),
+        valid=torch.zeros((b,), dtype=torch.bool, device=dev),
+    )
+
+
+def take_update_lanes(batch: UpdateBatch, idx) -> UpdateBatch:
+    """Gather the lanes ``idx`` (any integer index) out of ``batch``; lane
+    order follows ``idx``.  Field-generic: numpy and torch payloads alike."""
+    return UpdateBatch(
+        kind=batch.kind[idx],
+        ext_id=batch.ext_id[idx],
+        vector=batch.vector[idx],
+        valid=batch.valid[idx],
+    )
+
+
 def resolve_device(device=None) -> torch.device:
     """Entry points run on the card unless the caller names another device."""
     return torch.device("cuda" if device is None else device)

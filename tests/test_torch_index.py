@@ -22,6 +22,7 @@ from repro.core import StreamingIndex as JIndex
 from repro.core import make_runbook as j_runbook
 from repro.core import run_runbook as j_run
 from repro_torch import convert
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import test_scale as t_test_scale
 from repro_torch.core import StreamingIndex as TIndex
 from repro_torch.core import make_runbook as t_runbook
@@ -99,7 +100,7 @@ def test_capacity_exhausted_without_auto_grow():
     assert_index_equal(ji.istate, ti.istate, where="grown")
 
 
-def test_exception_contracts():
+def test_exception_contracts(tmp_path):
     data = qgrid_data(40, DIM, 6)
     _, ti = _pair(True, max_external_id=50)
     with pytest.raises(ValueError):
@@ -116,13 +117,13 @@ def test_exception_contracts():
         TIndex(ti.cfg, mode="nope", device="cpu")
     with pytest.raises(ValueError):
         TIndex(ti.cfg, max_external_id=0, device="cpu")
-    for call in (lambda: ti.apply_segments([]), lambda: ti.save(None, 0),
-                 lambda: TIndex.restore(None, ti.cfg)):
-        with pytest.raises(NotImplementedError):
-            call()
+    assert ti.apply_segments([]) == []
+    with pytest.raises(FileNotFoundError):
+        TIndex.restore(CheckpointManager(tmp_path), ti.cfg, device="cpu")
     rb = t_runbook("sliding_window", n=40, dim=DIM, t_max=4, seed=0)
-    with pytest.raises(NotImplementedError):
-        t_run(ti, rb, segmented=True)
+    with pytest.raises(ValueError, match="batch_updates=False"):
+        t_run(TIndex(ti.cfg, batch_updates=True, device="cpu"), rb,
+              segmented=True)
     with pytest.raises(TypeError):
         t_run(ti, rb, baseline="hnsw")
     with pytest.raises(ValueError):

@@ -15,6 +15,14 @@ import numpy as np
 import pytest
 import torch
 
+# One intra-op thread per process: the port's tests run small eager ops,
+# and a run spread over several worker processes (pytest-xdist) with a
+# pool of one thread per core in each spends most of its time contending
+# for the cores (about 10x slower).  Every comparison below is bitwise on
+# grid data or to a tolerance on Gaussian data, so the reduction order a
+# thread count picks changes no outcome.
+torch.set_num_threads(1)
+
 RTOL, ATOL = 2e-5, 1e-5
 INDEX_LEAVES = ("ext2slot", "slot2ext", "n_inserts", "n_deletes",
                 "insert_comps", "delete_comps")
@@ -78,6 +86,25 @@ def jax_index_numpy(state) -> dict:
     return d
 
 
+def jax_index_state(d: dict):
+    """The ``repro_torch.convert`` numpy layout as a reference
+    ``IndexState`` (``d["graph"]["quant"]`` None or ``{codes, scale,
+    qnorms}``)."""
+    import jax.numpy as jnp
+
+    from repro.core.quant import QuantStore
+    from repro.core.types import GraphState, IndexState
+
+    g = dict(d["graph"])
+    q = g.pop("quant", None)
+    if q is not None:
+        q = QuantStore(**{f: jnp.asarray(v) for f, v in q.items()})
+    return IndexState(
+        graph=GraphState(**{f: jnp.asarray(v) for f, v in g.items()},
+                         quant=q),
+        **{f: jnp.asarray(d[f]) for f in INDEX_LEAVES})
+
+
 def assert_field(a, b, name, exact=True):
     a, b = n(a), n(b)
     if a.dtype == np.uint32:
@@ -110,6 +137,20 @@ def assert_index_equal(jstate, tstate, exact=True, where=""):
         assert_field(v, b["graph"][f], f"{where} graph.{f}", exact)
     for f in INDEX_LEAVES:
         assert_field(a[f], b[f], f"{where} {f}", exact)
+
+
+def assert_port_equal(a, b, where=""):
+    """Every tensor leaf of two port trees (``IndexState``, results, ...)
+    bitwise equal, wherever each lives."""
+    if isinstance(a, torch.Tensor):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu()), where
+        return
+    if a is None:
+        assert b is None, where
+        return
+    assert type(a) is type(b), where
+    for f, x, y in zip(a._fields, a, b):
+        assert_port_equal(x, y, f"{where}.{f}")
 
 
 def assert_graph_equal(jgraph, tgraph, fields, exact=True, where=""):
