@@ -65,7 +65,21 @@ Phases, any failure exits non-zero:
      kill inside a save, bitwise at (a)'s end, and a
      ``StreamingIndex.save`` / ``restore`` round trip onto the card:
      identical leaves and a 1,024-query search; seconds per save and
-     restore and bytes per checkpoint.
+     restore and bytes per checkpoint;
+  7. the serving front door (``repro_torch.serving``) over clones of
+     phase 6's start state: (a) for ip, fresh and local, 8 queries served
+     from snapshot 0 are bitwise the same after the writer inserts at
+     their locations, deletes their top-1 ids and forces the policy's
+     consolidation, and after a publish top-1 is the new ids and no
+     deleted id comes back; publish ms against its bound, peak memory;
+     (b) open-loop Poisson load at half the capacity of one warm 64-query
+     dispatch (``benchmarks/serve_bench.py``'s three workloads:
+     query_only, mixed, mixed_serialized; 8 update batches of 32 lanes):
+     p50 / p95 / p99, QPS, fill, depth; mixed p99 within 1.5x + 2 ms of
+     query-only p99 and Recall@10 of the final snapshot's answers >= 0.90
+     against ``topk_score``; (c) ``repro_torch.launch.serve`` at D = 128,
+     plain and killed at tick 6 with a checkpoint every 4 ticks: the
+     replayed run ends at the plain run's state.
 
 Prints the kernels line, the card's name and power limit, and last the
 ``{"ok": true, "device": ...}`` line; the full record goes to
@@ -1791,7 +1805,9 @@ def durability_agrees(cfg, start, plan, ref_ip, queries):
 
 
 def segments_path(seed, live=1024):
-    """Phase 6: the segment path and durability at full width."""
+    """Phase 6: the segment path and durability at full width.  Returns
+    the record and the start state (config, state, data, queries), which
+    phase 7 serves."""
     t0 = time.perf_counter()
     cfg, start, data, queries, boot_s = segment_start(seed, live, 16 * 32)
     out = {"live": live, "bootstrap_s": boot_s}
@@ -1803,7 +1819,7 @@ def segments_path(seed, live=1024):
     out["6c"] = durability_agrees(cfg, start, plan, ref_ip, queries)
     add_counts(launches, out["6c"]["launches"])
     out["6c_s"] = time.perf_counter() - t0
-    del start, ref_ip
+    del ref_ip
     t0 = time.perf_counter()
     out["6b"], counts = segmented_runbook_agrees(seed)
     add_counts(launches, counts)
@@ -1812,6 +1828,364 @@ def segments_path(seed, live=1024):
     for name in F32_PATH:
         check(launches.get(name, 0) > 0,
               f"kernel {name} never launched on the segment path")
+    return out, (cfg, start, data, queries)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the serving front door on the card
+# ---------------------------------------------------------------------------
+
+
+# the kernels the serving path launches: the batched search's start column
+# and fused hops (7a-7c), the exact top-k of every recall check (7b, 7c)
+SERVING_PATH = ("gather_distance_batched", "beam_hop_fused", "topk_score")
+
+
+def serving_index(cfg, start, mode):
+    """A ``StreamingIndex`` on the card over a clone of ``start``, set in
+    as ``StreamingIndex.restore`` does (no empty handle allocated)."""
+    import torch
+
+    from repro_torch.core import StreamingIndex, clone_state
+
+    idx = StreamingIndex(cfg, mode=mode,
+                         max_external_id=int(start.ext2slot.shape[0]),
+                         batch_updates=True, device="meta")
+    idx.device = torch.device("cuda")
+    idx.istate = clone_state(start)
+    return idx
+
+
+def state_bytes(state):
+    import torch
+
+    if isinstance(state, torch.Tensor):
+        return state.numel() * state.element_size()
+    return 0 if state is None else sum(state_bytes(x) for x in state)
+
+
+def isolation_agrees(cfg, start, data, live):
+    """7a: for ip, fresh and local, 8 queries 0.01 from live points served
+    from snapshot 0; the writer inserts 8 points at the query locations,
+    deletes the served top-1 ids and forces the policy's consolidation;
+    the same queries from snapshot 0 again: bitwise the first answers;
+    after a publish: top-1 the new ids, no deleted id returned."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import delete_batch, insert_batch
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ServingFront, StreamingEngine
+
+    queries = data[:8] + np.float32(0.01)
+    new_ids = np.arange(len(data) - 8, len(data))
+    nbytes = state_bytes(start)
+    out = {"state_bytes": nbytes,
+           "publish_bound_ms": bound_ms(2 * nbytes, 0)[0]}
+    ops.reset_launch_counts()
+    for mode in ("ip", "fresh", "local"):
+        torch.cuda.reset_peak_memory_stats()
+        idx = serving_index(cfg, start, mode)
+        front = ServingFront(StreamingEngine(idx), deadline_s=0.0,
+                             max_bucket=8, k=10, publish_every=10**9)
+
+        def serve(now):
+            reqs = [front.submit_query(q, now) for q in queries]
+            front.pump(now + 1.0)
+            return reqs
+
+        before = serve(0.0)
+        top1 = np.unique([r.ext_ids[0] for r in before])
+        check(set(top1.tolist()) <= set(range(live)),
+              f"phase 7a: {mode} top-1 {top1} not live points")
+        front.submit_update(insert_batch(new_ids, queries, device="cuda"),
+                            1.0)
+        front.submit_update(delete_batch(top1, cfg.dim, device="cuda"), 1.0)
+        front.pump(2.0)
+        t0 = time.perf_counter()
+        did = idx.maybe_consolidate(force=True)
+        torch.cuda.synchronize()
+        consolidate_s = time.perf_counter() - t0
+        # local frees its slots at once: nothing is left to consolidate
+        check(front.metrics.n_updates == 2
+              and did == (mode != "local")
+              and int(idx.istate.graph.n_pending) == 0,
+              f"phase 7a: {mode} updates {front.metrics.n_updates}, "
+              f"forced consolidation ran: {did}, pending "
+              f"{int(idx.istate.graph.n_pending)}")
+        after = serve(3.0)
+        same = all(r1.snapshot_seq == 0
+                   and np.array_equal(r0.ext_ids, r1.ext_ids)
+                   and np.array_equal(r0.dists, r1.dists)
+                   for r0, r1 in zip(before, after))
+        check(same, f"phase 7a: {mode} snapshot 0 answers changed under "
+                    f"the writer")
+        p0 = front.metrics.publish_s
+        front.publish(4.0)
+        publish_ms = (front.metrics.publish_s - p0) * 1e3
+        final = serve(5.0)
+        for i, r in enumerate(final):
+            check(r.snapshot_seq == 1 and r.ext_ids[0] == new_ids[i],
+                  f"phase 7a: {mode} query {i} after publish: seq "
+                  f"{r.snapshot_seq}, ids {r.ext_ids}")
+            check(not set(top1.tolist()) & set(r.ext_ids.tolist()),
+                  f"phase 7a: {mode} served a deleted id: {r.ext_ids}")
+        out[mode] = {"deleted": len(top1), "identical_under_writer": True,
+                     "read_your_writes": True,
+                     "update_ms": front.metrics.update_s * 1e3,
+                     "consolidate_s": consolidate_s,
+                     "publish_ms": publish_ms,
+                     "peak_bytes": torch.cuda.max_memory_allocated()}
+        log(f"7a {mode}: snapshot 0 bitwise under the writer, "
+            f"read-your-writes after publish; updates "
+            f"{out[mode]['update_ms']:.1f} ms, forced consolidation "
+            f"{consolidate_s * 1e3:.1f} ms, publish {publish_ms:.3f} ms "
+            f"(bound {out['publish_bound_ms']:.3f} ms for {nbytes} bytes "
+            f"read and written), peak {out[mode]['peak_bytes']} bytes")
+        del front, idx
+    out["launches"] = ops.launch_counts()
+    return out
+
+
+def drive(front, trace, horizon):
+    """Step the front door through a time-sorted ``(t, kind, payload)``
+    trace, firing deadline expiries between events
+    (``benchmarks/serve_bench.py::_drive``)."""
+    for t, kind, payload in trace:
+        while True:
+            nd = front.next_event_time()
+            if nd is None or nd > t:
+                break
+            front.pump(nd)
+        if kind == "q":
+            front.submit_query(payload, t)
+        else:
+            front.submit_update(payload, t)
+        front.pump(t)
+    while True:
+        nd = front.next_event_time()
+        if nd is None:
+            break
+        front.pump(max(nd, horizon))
+
+
+def load_trace(seed, rate, horizon, queries, data, live, lanes, n_updates):
+    """Poisson query arrivals at ``rate``/s over ``horizon`` (the dataset's
+    queries in turn) and ``n_updates`` batches of ``lanes`` inserts
+    (fresh ids) and deletes (the oldest live ids) in turns, spread evenly
+    over the horizon (``benchmarks/serve_bench.py::_make_trace``)."""
+    import numpy as np
+
+    from repro_torch.core import delete_batch, insert_batch
+
+    rng = np.random.default_rng(seed)
+    events, t = [], 0.0
+    while True:
+        t += rng.exponential(1.0 / rate)
+        if t >= horizon:
+            break
+        events.append((t, "q", queries[len(events) % len(queries)]))
+    nxt, oldest = live, 0
+    for k in range(n_updates):
+        tu = (k + 1) * horizon / (n_updates + 1)
+        if k % 2 == 0:
+            ids = np.arange(nxt, nxt + lanes)
+            nxt += lanes
+            batch = insert_batch(ids, data[ids], device="cuda")
+        else:
+            batch = delete_batch(np.arange(oldest, oldest + lanes), 128,
+                                 device="cuda")
+            oldest += lanes
+        events.append((tu, "u", batch))
+    events.sort(key=lambda e: e[0])
+    return events, oldest
+
+
+def final_recall(front, cfg, k=10):
+    """Recall@k of the answers served from the final snapshot against the
+    exact top-k (``topk_score``) over that snapshot's live set."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import brute_force_topk
+
+    snap = front.store.acquire()
+    reqs = [r for d in front.completed for r in d.requests
+            if r.snapshot_seq == snap.seq]
+    q = torch.as_tensor(np.stack([r.vector for r in reqs]), device="cuda")
+    true_slots, _ = brute_force_topk(snap.state.graph, cfg, q, k=k)
+    truth = snap.state.slot2ext[true_slots.clamp(min=0).long()].cpu().numpy()
+    front.store.release(snap)
+    hits = sum(len(set(r.ext_ids.tolist()) & set(t.tolist()))
+               for r, t in zip(reqs, truth))
+    return hits / (k * len(reqs)), len(reqs)
+
+
+def load_agrees(seed, cfg, start, data, queries, live, n_queries=2048,
+                bucket=64, deadline_s=0.005, lanes=32, n_updates=8):
+    """7b: open-loop load on the ip engine (``benchmarks/serve_bench.py``):
+    Poisson arrivals at half the capacity of one warm full-bucket
+    dispatch, ``query_only``, ``mixed`` and ``mixed_serialized``; mixed p99
+    within 1.5x + 2 ms of query-only p99; Recall@10 of the final
+    snapshot's answers >= 0.90 and no deleted id in them."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ServingFront, StreamingEngine
+
+    def make_front(serialize):
+        front = ServingFront(StreamingEngine(serving_index(cfg, start, "ip")),
+                             deadline_s=deadline_s, max_bucket=bucket, k=10,
+                             publish_every=1, serialize_updates=serialize)
+        front.warmup(update_buckets=[lanes])
+        return front
+
+    ops.reset_launch_counts()
+    f0 = make_front(False)
+    snap = f0.store.acquire()
+    q = queries[:bucket]
+    svc = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        f0.engine.search(snap.state, q, 10, None)
+        svc.append(time.perf_counter() - t0)
+    f0.store.release(snap)
+    del f0, snap
+    capacity = bucket / min(svc)
+    rate = 0.5 * capacity
+    horizon = n_queries / rate
+    out = {"bucket": bucket, "deadline_ms": deadline_s * 1e3,
+           "update_lanes": lanes, "n_updates": n_updates,
+           "full_bucket_service_ms": min(svc) * 1e3,
+           "capacity_qps": capacity, "offered_qps": rate,
+           "horizon_s": horizon}
+    for name, n_upd, serialize in (("query_only", 0, False),
+                                   ("mixed", n_updates, False),
+                                   ("mixed_serialized", n_updates, True)):
+        front = make_front(serialize)
+        trace, n_deleted = load_trace(seed + 1, rate, horizon, queries, data,
+                                      live, lanes, n_upd)
+        t0 = time.perf_counter()
+        drive(front, trace, horizon)
+        torch.cuda.synchronize()
+        s = front.metrics.stats(horizon_s=horizon)
+        s["wall_s"] = time.perf_counter() - t0
+        check(s["n_updates"] == n_upd and s["n_publishes"] == n_upd,
+              f"phase 7b: {name} applied {s['n_updates']} updates, "
+              f"published {s['n_publishes']}")
+        if n_upd:
+            rec, n_final = final_recall(front, cfg)
+            served = {int(x) for d in front.completed for r in d.requests
+                      if r.snapshot_seq == n_upd for x in r.ext_ids}
+            check(not served & set(range(n_deleted)),
+                  f"phase 7b: {name} served deleted ids from the final "
+                  f"snapshot")
+            check(rec >= 0.90, f"phase 7b: {name} Recall@10 {rec:.4f} of "
+                               f"the final snapshot's answers < 0.90")
+            s["final_recall"], s["final_queries"] = rec, n_final
+        out[name] = s
+        log(f"7b {name}: p50 {s['p50_ms']:.3f} / p95 {s['p95_ms']:.3f} / "
+            f"p99 {s['p99_ms']:.3f} ms, {s['qps']:.0f} QPS achieved, "
+            f"{s['updates_per_s']:.0f} update lanes/s, fill "
+            f"{s['batch_fill']:.3f}, depth {s['mean_queue_depth']:.2f}, "
+            f"search / update / publish {s['search_s']:.3f} / "
+            f"{s['update_s']:.3f} / {s['publish_s']:.4f} s"
+            + (f", final-snapshot Recall@10 {s['final_recall']:.4f} over "
+               f"{s['final_queries']} queries" if n_upd else ""))
+        del front
+    qo, mx = out["query_only"]["p99_ms"], out["mixed"]["p99_ms"]
+    out["gate_ms"] = 1.5 * qo + 2.0
+    check(mx <= out["gate_ms"],
+          f"phase 7b: mixed p99 {mx:.3f} ms above 1.5 x query-only p99 "
+          f"{qo:.3f} + 2 = {out['gate_ms']:.3f} ms")
+    log(f"7b: capacity {capacity:.0f} QPS (one {bucket}-query dispatch "
+        f"{min(svc) * 1e3:.3f} ms), offered {rate:.0f} QPS over "
+        f"{horizon:.4f} s; p99 query_only {qo:.3f}, mixed {mx:.3f} (gate "
+        f"{out['gate_ms']:.3f}), mixed_serialized "
+        f"{out['mixed_serialized']['p99_ms']:.3f} ms")
+    out["launches"] = ops.launch_counts()
+    return out
+
+
+def launcher_agrees():
+    """7c: ``repro_torch.launch.serve`` on the card at D = 128, plain and
+    with a checkpoint every 4 ticks and a kill at tick 6: the same final
+    state, ``active`` and final-tick ``recall@10``."""
+    import contextlib
+    import io
+    import re
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    flags = ["--dim", "128", "--rate", "64", "--lifetime", "4",
+             "--ticks", "12"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    runs = {}
+    ops.reset_launch_counts()
+    try:
+        for name, extra in (("plain", []),
+                            ("kill", ["--checkpoint-dir", tmp,
+                                      "--checkpoint-every", "4",
+                                      "--kill-at", "6"])):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                idx = serve.main(flags + extra)
+            wall = time.perf_counter() - t0
+            text = buf.getvalue()
+            for line in text.splitlines():
+                log(f"7c {name}: {line}")
+            ticks = re.findall(r"^tick +(\d+) .* recall@10=([0-9.]+) "
+                               r"active=(\d+)$", text, re.M)
+            check(idx.device.type == "cuda" and ticks,
+                  f"phase 7c: {name} ran on {idx.device}, ticks {ticks}")
+            runs[name] = {"idx": idx, "wall_s": wall, "last_tick": ticks[-1],
+                          "text": text,
+                          "summary": text.strip().splitlines()[-1]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    a, b = runs["plain"], runs["kill"]
+    check("injected kill at tick 6); restored tick 4" in b["text"],
+          "phase 7c: the killed run did not restore tick 4")
+    bad = [p for p, same in differing_leaves(a["idx"].istate,
+                                             b["idx"].istate, "state")
+           if not same]
+    check(a["last_tick"] == b["last_tick"]
+          and a["idx"].n_active == b["idx"].n_active and not bad,
+          f"phase 7c: the replayed run ends at {b['last_tick']}, active "
+          f"{b['idx'].n_active}, against {a['last_tick']}, "
+          f"{a['idx'].n_active}; leaves differ: {bad}")
+    return {"plain_wall_s": a["wall_s"], "kill_wall_s": b["wall_s"],
+            "final_tick": list(a["last_tick"]),
+            "active": a["idx"].n_active,
+            "summaries": [a["summary"], b["summary"]],
+            "identical": True, "launches": ops.launch_counts()}
+
+
+def serving_path(seed, cfg, start, data, queries):
+    """Phase 7: the serving front door over phase 6's start state."""
+    live = int(start.graph.n_active)
+    out, launches = {"live": live}, {}
+    for key, fn in (("7a", lambda: isolation_agrees(cfg, start, data, live)),
+                    ("7b", lambda: load_agrees(seed, cfg, start, data,
+                                               queries, live)),
+                    ("7c", launcher_agrees)):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        out[f"{key}_s"] = time.perf_counter() - t0
+        add_counts(launches, out[key]["launches"])
+        log(f"{key}: {out[f'{key}_s']:.1f} s, launches "
+            f"{ {k: v for k, v in out[key]['launches'].items() if v} }")
+    out["launches"] = launches
+    for key, names in (("7a", ("gather_distance_batched", "beam_hop_fused")),
+                       ("7b", SERVING_PATH), ("7c", SERVING_PATH)):
+        for name in names:
+            check(out[key]["launches"].get(name, 0) > 0,
+                  f"phase {key}: kernel {name} never launched")
     return out
 
 
@@ -1861,6 +2235,7 @@ def main(argv=None):
               file=sys.stderr)
         return 2
 
+    smoke_t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     record = {"seed": args.seed}
@@ -1915,9 +2290,15 @@ def main(argv=None):
     record["hnsw"] = hnsw_path(args.seed, args.hnsw_n)
     record["hnsw"]["wall_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    record["segments"] = segments_path(args.seed)
+    record["segments"], start = segments_path(args.seed)
     record["segments"]["wall_s"] = time.perf_counter() - t0
     log(f"phase 6: {record['segments']['wall_s']:.1f} s")
+    t0 = time.perf_counter()
+    record["serving"] = serving_path(args.seed, *start)
+    record["serving"]["wall_s"] = time.perf_counter() - t0
+    del start
+    log(f"phase 7: {record['serving']['wall_s']:.1f} s")
+    record["total_s"] = time.perf_counter() - smoke_t0
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1936,7 +2317,7 @@ def main(argv=None):
             "launches": record[path]["launches"].get(name, 0),
             "launches_by_path": {p: record[p]["launches"].get(name, 0)
                                  for p in ("main", "quant", "fresh", "local",
-                                           "hnsw", "segments")},
+                                           "hnsw", "segments", "serving")},
             "max_abs_err": g.get("max_abs_err"),
             "grid_bitwise": name in grid,
             "ms": g.get("ms"), "public_ms": g.get("public_ms"),

@@ -5,9 +5,12 @@ against.  It imports ``torch`` (and numpy), never JAX.  Entry points
 allocate on the card unless the caller names another device; ``"auto"``
 backends resolve by the device of the state's tensors: the hand-written
 CUDA kernels (``repro_torch/csrc``) on the card, their plain PyTorch
-versions on the CPU.
+versions on the CPU.  Ported: the streaming index and its policies, the
+HNSW baseline, segments, durability and the serving front door
+(``serving``, ``launch/serve.py``); the sharded index is not yet.
 """
-from . import checkpoint, configs, core, ft, kernels  # noqa: F401
+from . import checkpoint, configs, core, data, ft, kernels, launch  # noqa: F401
+from . import serving  # noqa: F401
 from .core import (  # noqa: F401
     ANNConfig,
     IndexState,

@@ -1,7 +1,8 @@
 # IP-DiskANN's streaming loop (insert, in-place delete, beam search,
 # recall), the fresh and local update policies, the HNSW baseline, the
 # StreamingIndex shell with capacity growth, whole-segment update streams,
-# durability (checkpoint, restore, supervised replay), the runbook driver
+# durability (checkpoint, restore, supervised replay), the published
+# snapshots the serving layer reads, the runbook driver
 # and the int8 quantized tier, on PyTorch tensors, with hand-written CUDA
 # kernels on the card.
 from .api import (
@@ -10,6 +11,7 @@ from .api import (
     LocalRepairPolicy,
     Segment,
     SegmentPlan,
+    SnapshotHandle,
     UpdatePolicy,
     apply,
     apply_segment,
@@ -30,6 +32,7 @@ from .api import (
     run_segments,
     segment_scan,
     segment_step,
+    take_snapshot,
 )
 from .api import search as search_index
 from .backend import (

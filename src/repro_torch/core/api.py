@@ -3,7 +3,8 @@
 for queries, the ``UpdatePolicy`` registry (``ip``, ``fresh``, ``local``),
 the consolidation trigger, and whole-segment update streams
 (``apply_segment`` over a (T, B) op tensor, ``plan_segments`` /
-``run_segments`` over an arbitrary op stream).  The reference's
+``run_segments`` over an arbitrary op stream), and ``take_snapshot``, the
+published read states of the serving layer.  The reference's
 ``consolidation_fields`` / ``consolidate_narrow`` only keep the vector
 table out of a ``lax.cond``'s operands, and its ``TRACE_COUNTER`` /
 ``TRACE_UNROLL`` count JAX traces; eager PyTorch has neither, so they have
@@ -59,6 +60,28 @@ def clone_state(state):
     if state is None:
         return None
     return type(state)(*(clone_state(x) for x in state))
+
+
+class SnapshotHandle(NamedTuple):
+    """A sequence-numbered read-only view of an index state.
+
+    ``state`` is a deep copy of the writer's state at publication time
+    (``take_snapshot`` clones every tensor leaf: the graph, the int8 tier,
+    both id maps and the counters), so the in-place updates that
+    ``apply`` makes to the writer's tensors never reach it: a search
+    against a snapshot observes exactly the updates applied before it was
+    taken.  ``seq`` is the host-side publication sequence number."""
+
+    seq: int
+    state: IndexState
+
+
+def take_snapshot(state, seq: int = 0) -> SnapshotHandle:
+    """Clone ``state`` into a ``SnapshotHandle`` tagged ``seq``: the clone
+    is the isolation boundary between the writer and the readers.  On the
+    card the copies are queued on the current stream; a caller that times
+    the clone synchronises first."""
+    return SnapshotHandle(seq=int(seq), state=clone_state(state))
 
 
 # ---------------------------------------------------------------------------
@@ -599,10 +622,11 @@ def search(state: IndexState, cfg: ANNConfig, queries: torch.Tensor, *,
 
 __all__ = [
     "FreshDiskANNPolicy", "IPDiskANNPolicy", "LocalRepairPolicy", "Segment",
-    "SegmentPlan", "UpdatePolicy", "apply", "apply_segment", "auto_unroll",
+    "SegmentPlan", "SnapshotHandle", "UpdatePolicy", "apply",
+    "apply_segment", "auto_unroll",
     "available_policies", "clone_state", "consolidate_if_needed",
     "delete_batch", "device_sweep", "get_policy", "insert_batch",
     "make_update_batch", "maybe_consolidate", "mixed_update_batch",
     "pad_update_batch", "plan_segments", "register_policy", "run_segments",
-    "search", "segment_scan", "segment_step",
+    "search", "segment_scan", "segment_step", "take_snapshot",
 ]
