@@ -33,13 +33,13 @@ Phases, any failure exits non-zero:
      same index's query-only phase at ``hop_fused = 0`` (the int8 gather
      on every hop) and at H = 4, batch by batch in turns: QPS and launches
      per batch of each, every result identical;
-  4. short grid-data streams at test size: the f32 ``apply`` stream with
-     backend "cuda" and "torch", a quantized ``StreamingIndex`` stream
-     that grows through two capacity buckets with backend "cuda" (hop
-     fusion off, so the int8 gather carries every hop, and on) and
-     "torch", and the policy streams: fresh through an Alg-4
-     consolidation, local in f32 and on the int8 tier at H = 0 and H = 4,
-     HNSW through a delete-and-replace round; each must end in identical
+  4. short grid-data streams at test size, each sub-phase timed: the f32
+     ``apply`` stream with backend "cuda" and "torch", a quantized
+     ``StreamingIndex`` stream that grows through two capacity buckets
+     with backend "cuda" (hop fusion off, so the int8 gather carries every
+     hop, and on) and "torch", and the policy streams: fresh through an
+     Alg-4 consolidation, local on the int8 tier at H = 0 and H = 4, HNSW
+     through a delete-and-replace round; each must end in identical
      states and results;
   5. the fresh and local policies (``StreamingIndex(ANNConfig(dim=128,
      n_cap=1_000_000), mode=..., batch_updates=True)`` replaying a
@@ -79,7 +79,24 @@ Phases, any failure exits non-zero:
      query-only p99 and Recall@10 of the final snapshot's answers >= 0.90
      against ``topk_score``; (c) ``repro_torch.launch.serve`` at D = 128,
      plain and killed at tick 6 with a checkpoint every 4 ticks: the
-     replayed run ends at the plain run's state.
+     replayed run ends at the plain run's state;
+  8. the sharded index (``repro_torch.core.ShardedIndex``): L = 4 logical
+     rows of 2^18 slots at D = 128 (1,048,576 slots in all): (a) 256
+     serial inserts through ``insert`` and a checkpoint; (b) the
+     checkpoint restored onto one card as S = 1 and S = 2 (and onto two
+     cards where there are two) with ``sequential=False``, each fed one
+     ``update_stream`` of 768 inserts and 256 deletes in 64-lane steps:
+     every leaf of every row bitwise equal across layouts; (c) 1,024
+     queries at B = 256 with both search partitions on every layout: the
+     same ids, rows and distances, equal to a host merge of the per-row
+     ``search`` answers, Recall@10 >= 0.90 against ``topk_score`` over the
+     union of the rows, no deleted id; (d) one batch under replicate
+     routing equal to compact routing, and a two-row ``fresh`` index
+     through a delete-heavy stream: consolidated, nothing pending, no
+     edge into an inactive slot; (e) ``ServingFront(ShardedEngine(...))``
+     snapshot isolation and read-your-writes, publish ms against its
+     bound, and ``repro_torch.launch.serve --shards 2`` plain and killed:
+     equal rows.
 
 Prints the kernels line, the card's name and power limit, and last the
 ``{"ok": true, "device": ...}`` line; the full record goes to
@@ -1374,11 +1391,11 @@ def qgrid(rng, n, d):
     return x.astype(np.float32)
 
 
-def quant_engines_agree(seed, n_pts=900, n_cap=256):
+def quant_engines_agree(seed, n_pts=600, n_cap=256):
     """A quantized ``StreamingIndex`` stream on grid data that grows from
     ``n_cap`` through two capacity buckets, with the cuda engine at H = 0
     (the int8 gather kernel carries every hop) and H = 4 (the fused int8
-    kernel), and the torch engine at both: four identical ends."""
+    kernel), and the torch engine at H = 0: three identical ends."""
     import numpy as np
     import torch
 
@@ -1389,23 +1406,24 @@ def quant_engines_agree(seed, n_pts=900, n_cap=256):
     rng = np.random.default_rng(seed + 3)
     data = qgrid(rng, n_pts, 32)
     q = qgrid(rng, 64, 32)
-    dels = rng.choice(700, size=200, replace=False)
+    first = n_pts * 5 // 6
+    dels = rng.choice(first, size=first // 4, replace=False)
+    cut = len(dels) * 3 // 4
     runs = {}
-    for backend, hops in (("cuda", 0), ("cuda", 4), ("torch", 0),
-                          ("torch", 4)):
+    for backend, hops in (("cuda", 0), ("cuda", 4), ("torch", 0)):
         cfg = dataclasses.replace(test_scale(dim=32, n_cap=n_cap,
                                              backend=backend),
                                   quantized=True, hop_fused=hops)
         idx = StreamingIndex(cfg, batch_updates=True, max_external_id=n_pts)
         ops.reset_launch_counts()
         caps = [idx.cfg.n_cap]
-        for lo in range(0, 700, 128):
-            ids = np.arange(lo, min(lo + 128, 700))
+        for lo in range(0, first, 128):
+            ids = np.arange(lo, min(lo + 128, first))
             idx.insert(ids, data[ids])
             caps.append(idx.cfg.n_cap)
-        idx.delete(dels[:150])
-        idx.insert(np.arange(700, n_pts), data[700:])
-        idx.delete(dels[150:])
+        idx.delete(dels[:cut])
+        idx.insert(np.arange(first, n_pts), data[first:])
+        idx.delete(dels[cut:])
         idx.maybe_consolidate(force=True)
         ext, dist, slots = idx.search(q, k=10)
         runs[(backend, hops)] = {
@@ -1432,13 +1450,14 @@ def quant_engines_agree(seed, n_pts=900, n_cap=256):
             "runs": [f"{b}/H={h}" for b, h in runs], "identical": True}
 
 
-def policy_engines_agree(seed, n_pts=480, n_del=160):
+def policy_engines_agree(seed, n_pts=240, n_del=80):
     """Grid-data streams at test size, each with backend "cuda" and
-    "torch": fresh (through an Alg-4 consolidation), local in f32 and on
-    the int8 tier at H = 0 and H = 4 (``StreamingIndex`` with batched
-    updates), and HNSW through a delete-and-replace round; each pair must
-    end in identical states and results, and the cuda run must have
-    launched its kernels."""
+    "torch": fresh (through an Alg-4 consolidation; it and
+    ``engines_agree`` carry kernel 3 in f32), local on the int8 tier at
+    H = 0 and H = 4 (``StreamingIndex`` with batched updates), and HNSW
+    through a delete-and-replace round; each pair must end in identical
+    states and results, and the cuda run must have launched its
+    kernels."""
     import numpy as np
 
     from repro_torch.configs import test_scale
@@ -1452,7 +1471,6 @@ def policy_engines_agree(seed, n_pts=480, n_del=160):
     dels = rng.choice(first, size=n_del, replace=False)
     streams = {
         "fresh": ("fresh", False, -1, ("beam_hop_fused",)),
-        "local": ("local", False, -1, ("beam_hop_fused",)),
         "local/int8/H=0": ("local", True, 0, ("gather_distance_batched_q",)),
         "local/int8/H=4": ("local", True, 4, ("beam_hop_fused_q",)),
     }
@@ -2189,6 +2207,423 @@ def serving_path(seed, cfg, start, data, queries):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the sharded index on the card
+# ---------------------------------------------------------------------------
+
+
+def host_merge(parts, k):
+    """The flat merge of per-row ``(ext ids, dists)`` answers, numpy: (row,
+    k) order, a stable sort (ties to the lower flat index).  Returns ids,
+    owner rows, dists."""
+    import numpy as np
+
+    ids = np.concatenate([p[0] for p in parts], axis=1)
+    d = np.concatenate([p[1] for p in parts], axis=1)
+    rows = np.concatenate([np.full(p[0].shape, i, np.int32)
+                           for i, p in enumerate(parts)], axis=1)
+    order = np.argsort(d, axis=1, kind="stable")[:, :k]
+    return tuple(np.take_along_axis(x, order, axis=1) for x in (ids, rows, d))
+
+
+def rows_differ(a, b):
+    """Paths of the leaves that differ between two indexes' rows."""
+    return [p for i, (x, y) in enumerate(zip(a.rows, b.rows))
+            for p, same in differing_leaves(x, y, f"row{i}") if not same]
+
+
+def sharded_build(cfg, data, mgr, dev, n_logical=4, n_boot=256):
+    """8a: a ``ShardedIndex`` of ``n_logical`` rows on ``dev``, ``n_boot``
+    serial inserts through ``insert`` (kernel 2), a checkpoint."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import ShardedIndex
+
+    idx = ShardedIndex(cfg, [dev], n_logical=n_logical, sequential=True)
+    check(all(r.graph.vectors.device == dev for r in idx.rows),
+          "phase 8a: rows are not on the card")
+    ids = np.arange(n_boot)
+    idx.synchronize()
+    t0 = time.perf_counter()
+    slots, owners = idx.insert(ids, data[ids])
+    idx.synchronize()
+    insert_s = time.perf_counter() - t0
+    per_row = np.bincount(owners, minlength=n_logical)
+    check((slots >= 0).all() and idx.n_active == n_boot,
+          f"phase 8a: {idx.n_active} of {n_boot} inserted")
+    t0 = time.perf_counter()
+    idx.save(mgr, 0)
+    save_s = time.perf_counter() - t0
+    step_dir = next(p for p in Path(mgr.dir).iterdir() if p.is_dir())
+    nbytes = sum(f.stat().st_size for f in step_dir.rglob("*") if f.is_file())
+    out = {"n_logical": n_logical, "n_cap_per_row": cfg.n_cap,
+           "serial_inserts": n_boot, "per_row": per_row.tolist(),
+           "insert_s": insert_s, "ms_per_insert": insert_s / n_boot * 1e3,
+           "save_s": save_s, "checkpoint_bytes": nbytes,
+           "row_bytes": state_bytes(idx.rows[0])}
+    log(f"8a: {n_boot} serial inserts over {n_logical} rows {per_row} in "
+        f"{insert_s:.1f} s ({out['ms_per_insert']:.1f} ms each); save "
+        f"{save_s:.2f} s, {nbytes} bytes")
+    del idx
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_layouts(cfg, data, mgr, layouts, n_boot=256, n_ins=768,
+                    n_del=256, lanes=64, max_t=8, seed=0):
+    """8b: the checkpoint restored onto each layout (``sequential=False``)
+    and fed one ``update_stream`` (``n_ins`` inserts then ``n_del``
+    deletes, ``lanes`` a step): every leaf of every row bitwise equal
+    across layouts."""
+    import numpy as np
+
+    from repro_torch.core import ShardedIndex, delete_batch, insert_batch
+
+    rng = np.random.default_rng(seed + 31)
+    live = n_boot + n_ins
+    dels = rng.choice(live, size=n_del, replace=False)
+    steps = [insert_batch(np.arange(lo, lo + lanes), data[lo:lo + lanes],
+                          device="cpu")
+             for lo in range(n_boot, live, lanes)]
+    steps += [delete_batch(dels[lo:lo + lanes], cfg.dim, device="cpu")
+              for lo in range(0, n_del, lanes)]
+    out, idxs = {"steps": len(steps), "lanes": lanes, "max_t": max_t}, {}
+    for name, devs in layouts.items():
+        t0 = time.perf_counter()
+        idx, step = ShardedIndex.restore(mgr, cfg, devs, sequential=False)
+        idx.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(step == 0 and idx.n_active == n_boot,
+              f"phase 8b: {name} restored step {step}, {idx.n_active} live")
+        t0 = time.perf_counter()
+        res = idx.update_stream(steps, max_t=max_t)
+        idx.synchronize()
+        dt = time.perf_counter() - t0
+        n_ok = sum(int(r.ok.sum()) for r in res)
+        check(n_ok == n_ins + n_del and idx.n_active == live - n_del,
+              f"phase 8b: {name} applied {n_ok} lanes, {idx.n_active} live")
+        out[name] = {
+            "devices": [str(d) for d in devs], "restore_s": restore_s,
+            "segments": len(res), "stream_s": dt,
+            "lanes_per_s": (n_ins + n_del) / dt,
+            "ms_per_row_apply": dt * 1e3 / (len(steps) * idx.n_logical),
+            "consolidated_rows_ops": int(sum(r.consolidated.sum()
+                                             for r in res))}
+        log(f"8b {name} ({out[name]['devices']}): restore {restore_s:.2f} s; "
+            f"{len(steps)} steps in {len(res)} segments, {dt:.1f} s, "
+            f"{out[name]['lanes_per_s']:.1f} lanes/s, "
+            f"{out[name]['ms_per_row_apply']:.1f} ms per row-apply")
+        idxs[name] = idx
+    names = list(idxs)
+    for other in names[1:]:
+        bad = rows_differ(idxs[names[0]], idxs[other])
+        check(not bad, f"phase 8b: layouts {names[0]} and {other} differ in "
+                       f"{bad[:8]}")
+    out["identical"] = True
+    return out, idxs, dels
+
+
+def sharded_search(cfg, idxs, queries, dels, qb=256, k=10):
+    """8c: both partitions on every layout, batches of ``qb``: the same
+    ids, rows and distances; equal to a host merge of the per-row
+    ``search`` answers; Recall@10 against ``topk_score`` over the union of
+    the rows >= 0.90; no deleted id."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import brute_force_topk, search_index
+
+    out, answers = {"batch": qb, "queries": len(queries)}, {}
+    for name, idx in idxs.items():
+        for part in (None, "queries"):
+            idx.search(queries[:qb], k=k, l=cfg.l_search, partition=part)
+            idx.synchronize()
+            t0 = time.perf_counter()
+            got = [idx.search(queries[lo:lo + qb], k=k, l=cfg.l_search,
+                              partition=part)
+                   for lo in range(0, len(queries), qb)]
+            idx.synchronize()
+            dt = time.perf_counter() - t0
+            key = f"{name}/{part or 'replicate'}"
+            answers[key] = tuple(np.concatenate([g[i] for g in got])
+                                 for i in range(3))
+            out[key] = {"qps": len(queries) / dt, "s": dt,
+                        "comps": sum(g[3] for g in got)}
+            log(f"8c {key}: {out[key]['qps']:.0f} QPS at B = {qb}")
+    keys = list(answers)
+    for other in keys[1:]:
+        same = all(np.array_equal(a, b) for a, b in
+                   zip(answers[keys[0]], answers[other]))
+        check(same, f"phase 8c: {keys[0]} and {other} answers differ")
+    idx = next(iter(idxs.values()))
+    qt = torch.from_numpy(queries).to(idx.devices[0])
+    per_row, truth = [], []
+    for row in idx.rows:
+        q = qt.to(row.ext2slot.device)
+        parts_a, parts_b = [], []
+        for lo in range(0, len(queries), qb):
+            ext, d, _ = search_index(row, cfg, q[lo:lo + qb], k=k,
+                                     l=cfg.l_search)
+            parts_a.append(ext.cpu().numpy())
+            parts_b.append(d.cpu().numpy())
+        per_row.append((np.concatenate(parts_a), np.concatenate(parts_b)))
+        slots, d = brute_force_topk(row, cfg, q, k=k)
+        ext = torch.where(slots >= 0,
+                          row.slot2ext[slots.clamp(min=0).long()],
+                          torch.full_like(slots, -1))
+        truth.append((ext.cpu().numpy(), d.cpu().numpy()))
+    merged = host_merge(per_row, k)
+    ref = answers[keys[0]]
+    check(all(np.array_equal(a, b) for a, b in zip(merged, ref)),
+          "phase 8c: the sharded answers differ from a host merge of the "
+          "per-row searches")
+    exact = host_merge(truth, k)[0]
+    hits = sum(len(set(a.tolist()) & set(b.tolist()))
+               for a, b in zip(ref[0], exact))
+    rec = hits / (k * len(queries))
+    check(rec >= 0.90, f"phase 8c: Recall@10 {rec:.4f} < 0.90")
+    check(not np.isin(ref[0], dels).any(), "phase 8c: a deleted id came back")
+    out["recall"] = rec
+    out["identical"] = True
+    log(f"8c: partitions and layouts identical, equal to the host merge; "
+        f"Recall@10 {rec:.4f} over the union of {len(idx.rows)} rows")
+    return out
+
+
+def sharded_routing_and_fresh(cfg, data, mgr, dev, seed, first_new,
+                              fresh_cap=2048, n_fresh=512, n_fresh_del=256,
+                              lanes=64):
+    """8d: one update batch under replicate routing equals compact routing
+    (rows and slots); a fresh index of two rows gets a delete-heavy stream:
+    ``consolidate_sharded`` fires, then nothing pending, no tombstone, no
+    edge into an inactive slot."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    from repro_torch.core import ShardedIndex, delete_batch, insert_batch
+
+    ids = np.arange(first_new, first_new + lanes)
+    runs = {}
+    for routing in ("compact", "replicate"):
+        idx, _ = ShardedIndex.restore(mgr, cfg, [dev], routing=routing,
+                                      sequential=False)
+        idx.synchronize()
+        t0 = time.perf_counter()
+        slots, _ = idx.insert(ids, data[ids])
+        idx.synchronize()
+        runs[routing] = (idx, slots, time.perf_counter() - t0)
+    (a, sa, ta), (b, sb, tb) = runs["compact"], runs["replicate"]
+    bad = rows_differ(a, b)
+    check(not bad and np.array_equal(sa, sb),
+          f"phase 8d: replicate and compact routing differ in {bad[:8]}")
+    out = {"routing": {"lanes": lanes, "compact_s": ta, "replicate_s": tb,
+                       "identical": True}}
+    log(f"8d: one {lanes}-lane batch, compact {ta:.2f} s, replicate "
+        f"{tb:.2f} s, rows identical")
+    del runs, a, b
+
+    fcfg = dc.replace(cfg, n_cap=fresh_cap)
+    idx = ShardedIndex(fcfg, [dev], policy="fresh", n_logical=2,
+                       sequential=False)
+    rng = np.random.default_rng(seed + 37)
+    dels = rng.choice(n_fresh, size=n_fresh_del, replace=False)
+    steps = [insert_batch(np.arange(lo, lo + lanes), data[lo:lo + lanes],
+                          device="cpu") for lo in range(0, n_fresh, lanes)]
+    steps += [delete_batch(dels[lo:lo + lanes], cfg.dim, device="cpu")
+              for lo in range(0, n_fresh_del, lanes)]
+    t0 = time.perf_counter()
+    res = idx.update_stream(steps, max_t=8)
+    idx.synchronize()
+    dt = time.perf_counter() - t0
+    fired = sorted({int(r) for s in res
+                    for r in np.nonzero(s.needs_consolidation.any(1))[0]})
+    check(fired, "phase 8d: the fresh stream never flagged a row")
+    for i, row in enumerate(idx.rows):
+        g = row.graph
+        check(int(g.n_pending) == 0 and not bool(g.tombstone.any()),
+              f"phase 8d: fresh row {i} left {int(g.n_pending)} pending")
+        check(edges_into_inactive(g.adj, g.active) == 0,
+              f"phase 8d: fresh row {i} has edges into inactive slots")
+    check(idx.n_active == n_fresh - n_fresh_del,
+          f"phase 8d: fresh live count {idx.n_active}")
+    out["fresh"] = {"n_cap_per_row": fresh_cap, "inserts": n_fresh,
+                    "deletes": n_fresh_del, "stream_s": dt,
+                    "rows_consolidated": fired}
+    log(f"8d: fresh stream {dt:.1f} s, rows {fired} consolidated, nothing "
+        f"pending, no edge into an inactive slot")
+    return out
+
+
+def sharded_serving(cfg, idx, data, queries_at, new_ids, dels):
+    """8e: ``ServingFront(ShardedEngine(idx))``: snapshot-0 answers bitwise
+    under the writer, the new ids top-1 after a publish, no deleted id;
+    publish ms against the bytes of every row read and written once."""
+    import numpy as np
+
+    from repro_torch.core import delete_batch, insert_batch
+    from repro_torch.serving import ServingFront, ShardedEngine
+
+    dev = idx.devices[0]
+    nbytes = sum(state_bytes(r) for r in idx.rows)
+    front = ServingFront(ShardedEngine(idx), deadline_s=0.0, max_bucket=8,
+                         k=10, publish_every=10**9)
+
+    def serve(now):
+        reqs = [front.submit_query(q, now) for q in queries_at]
+        front.pump(now + 1.0)
+        return reqs
+
+    before = serve(0.0)
+    top1 = np.unique([r.ext_ids[0] for r in before])
+    check(not np.isin(top1, dels).any(), "phase 8e: a deleted id is top-1")
+    front.submit_update(insert_batch(new_ids, queries_at, device=dev), 1.0)
+    front.submit_update(delete_batch(top1, cfg.dim, device=dev), 1.0)
+    front.pump(2.0)
+    after = serve(3.0)
+    same = all(r1.snapshot_seq == 0 and np.array_equal(r0.ext_ids, r1.ext_ids)
+               and np.array_equal(r0.dists, r1.dists)
+               for r0, r1 in zip(before, after))
+    check(front.metrics.n_updates == 2 and same,
+          "phase 8e: snapshot 0 answers changed under the writer")
+    p0 = front.metrics.publish_s
+    front.publish(4.0)
+    publish_ms = (front.metrics.publish_s - p0) * 1e3
+    final = serve(5.0)
+    for i, r in enumerate(final):
+        check(r.snapshot_seq == 1 and r.ext_ids[0] == new_ids[i]
+              and not set(top1.tolist()) & set(r.ext_ids.tolist()),
+              f"phase 8e: query {i} after publish: seq {r.snapshot_seq}, "
+              f"ids {r.ext_ids}")
+    # a second publish reuses the freed slot's blocks: the first one also
+    # pays the allocator for a new copy of every row
+    p1 = front.metrics.publish_s
+    front.publish(6.0)
+    republish_ms = (front.metrics.publish_s - p1) * 1e3
+    out = {"identical_under_writer": True, "read_your_writes": True,
+           "update_ms": front.metrics.update_s * 1e3,
+           "publish_ms": publish_ms, "republish_ms": republish_ms,
+           "state_bytes": nbytes,
+           "publish_bound_ms": bound_ms(2 * nbytes, 0)[0]}
+    log(f"8e: snapshot 0 bitwise under the writer, read-your-writes; "
+        f"updates {out['update_ms']:.1f} ms, publish {publish_ms:.3f} ms, "
+        f"again {republish_ms:.3f} ms (bound "
+        f"{out['publish_bound_ms']:.3f} ms for {nbytes} bytes)")
+    return out
+
+
+def sharded_launcher(device="cuda"):
+    """8e: ``repro_torch.launch.serve --shards 2`` at D = 128, plain and
+    killed at tick 6 with a checkpoint every 4 ticks: equal rows."""
+    import contextlib
+    import io
+    import re
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import serve
+
+    flags = ["--dim", "128", "--rate", "32", "--lifetime", "4",
+             "--ticks", "8", "--shards", "2", "--device", device]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_shards_")
+    runs = {}
+    try:
+        for name, extra in (("plain", []),
+                            ("kill", ["--checkpoint-dir", tmp,
+                                      "--checkpoint-every", "4",
+                                      "--kill-at", "6"])):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                idx = serve.main(flags + extra)
+            text = buf.getvalue()
+            for line in text.splitlines():
+                log(f"8e {name}: {line}")
+            check(idx.devices[0].type == device and idx.n_logical == 2
+                  and re.search(r"^served 8 ticks shards=2: ", text, re.M),
+                  f"phase 8e: launcher {name} on {idx.devices}")
+            runs[name] = (idx, time.perf_counter() - t0, text)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    (a, ta, _), (b, tb, text) = runs["plain"], runs["kill"]
+    check("restored sharded checkpoint at tick 4 (2 logical shards on 2 "
+          "devices)" in text, "phase 8e: the killed run did not restore "
+                              "tick 4")
+    bad = rows_differ(a, b)
+    check(not bad and a.n_active == b.n_active,
+          f"phase 8e: the replayed launcher differs in {bad[:8]}")
+    return {"plain_wall_s": ta, "kill_wall_s": tb, "active": a.n_active,
+            "identical": True}
+
+
+def sharded_path(seed, n_cap=1 << 18, n_logical=4):
+    """Phase 8: ``ShardedIndex`` over ``n_logical`` rows of ``n_cap`` slots
+    at D = 128 on the card."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import ANNConfig, make_dataset
+    from repro_torch.kernels import ops
+
+    cfg = ANNConfig(dim=128, n_cap=n_cap)
+    data, queries = make_dataset(1200, 128, "l2", n_queries=1024,
+                                 seed=seed + 29)
+    dev = torch.device("cuda", 0)
+    layouts = {"S1": [dev], "S2": [dev, dev]}
+    if torch.cuda.device_count() >= 2:
+        layouts["S2_two_cards"] = [dev, torch.device("cuda", 1)]
+    log(f"phase 8 layouts: {layouts}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    out = {"cfg": {"n_logical": n_logical, "n_cap_per_row": n_cap,
+                   "dim": cfg.dim, "r": cfg.r, "l_search": cfg.l_search},
+           "layouts": list(layouts)}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    try:
+        mgr = timed_manager(tmp, keep=2)
+        t0 = time.perf_counter()
+        out["8a"] = sharded_build(cfg, data, mgr, dev, n_logical)
+        out["8a_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["8b"], idxs, dels = sharded_layouts(cfg, data, mgr, layouts,
+                                                seed=seed)
+        out["8b"]["load_s"] = list(mgr.load_s)
+        out["8b_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["8c"] = sharded_search(cfg, idxs, queries, dels)
+        out["8c_s"] = time.perf_counter() - t0
+        writer = idxs["S2"]
+        del idxs
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["8d"] = sharded_routing_and_fresh(cfg, data, mgr, dev, seed,
+                                              first_new=1024)
+        out["8d_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        live = np.setdiff1d(np.arange(1024), dels)
+        out["8e"] = sharded_serving(cfg, writer, data,
+                                    data[live[:8]] + np.float32(0.01),
+                                    np.arange(1100, 1108), dels)
+        del writer
+        torch.cuda.empty_cache()
+        out["8e"]["launcher"] = sharded_launcher()
+        out["8e_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    out["launches"] = ops.launch_counts()
+    log(f"phase 8 launches {out['launches']}, peak "
+        f"{out['peak_mem_bytes']} bytes")
+    for name in F32_PATH:
+        check(out["launches"][name] > 0,
+              f"kernel {name} never launched on the sharded path")
+    return out
+
+
 def compare_runs(key, runs, kernels):
     """The cuda and torch runs of one stream: every state leaf and result
     identical, and ``kernels`` launched by the cuda run."""
@@ -2274,14 +2709,17 @@ def main(argv=None):
     t0 = time.perf_counter()
     record["quant"] = quant_path(args.seed, args.runbook_n)
     record["quant"]["wall_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    record["engines"] = engines_agree(args.seed)
-    log(f"cuda vs torch engines: {record['engines']}")
-    record["quant_engines"] = quant_engines_agree(args.seed)
-    log(f"quantized cuda vs torch engines: {record['quant_engines']}")
-    record["policy_engines"] = policy_engines_agree(args.seed)
-    log(f"policy streams, cuda vs torch: {record['policy_engines']}")
-    record["engines_s"] = time.perf_counter() - t0
+    t4 = time.perf_counter()
+    record["engines_sub_s"] = {}
+    for key, fn in (("engines", engines_agree),
+                    ("quant_engines", quant_engines_agree),
+                    ("policy_engines", policy_engines_agree)):
+        t0 = time.perf_counter()
+        record[key] = fn(args.seed)
+        record["engines_sub_s"][key] = time.perf_counter() - t0
+        log(f"phase 4 {key}, cuda vs torch "
+            f"({record['engines_sub_s'][key]:.1f} s): {record[key]}")
+    record["engines_s"] = time.perf_counter() - t4
     for mode in ("fresh", "local"):
         t0 = time.perf_counter()
         record[mode] = policy_path(args.seed, mode, args.policy_n)
@@ -2298,7 +2736,12 @@ def main(argv=None):
     record["serving"]["wall_s"] = time.perf_counter() - t0
     del start
     log(f"phase 7: {record['serving']['wall_s']:.1f} s")
+    t0 = time.perf_counter()
+    record["sharded"] = sharded_path(args.seed)
+    record["sharded"]["wall_s"] = time.perf_counter() - t0
+    log(f"phase 8: {record['sharded']['wall_s']:.1f} s")
     record["total_s"] = time.perf_counter() - smoke_t0
+    log(f"smoke: {record['total_s']:.1f} s")
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2317,7 +2760,8 @@ def main(argv=None):
             "launches": record[path]["launches"].get(name, 0),
             "launches_by_path": {p: record[p]["launches"].get(name, 0)
                                  for p in ("main", "quant", "fresh", "local",
-                                           "hnsw", "segments", "serving")},
+                                           "hnsw", "segments", "serving",
+                                           "sharded")},
             "max_abs_err": g.get("max_abs_err"),
             "grid_bitwise": name in grid,
             "ms": g.get("ms"), "public_ms": g.get("public_ms"),

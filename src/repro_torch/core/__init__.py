@@ -2,9 +2,9 @@
 # recall), the fresh and local update policies, the HNSW baseline, the
 # StreamingIndex shell with capacity growth, whole-segment update streams,
 # durability (checkpoint, restore, supervised replay), the published
-# snapshots the serving layer reads, the runbook driver
-# and the int8 quantized tier, on PyTorch tensors, with hand-written CUDA
-# kernels on the card.
+# snapshots the serving layer reads, the runbook driver, the int8
+# quantized tier and the sharded index (L logical rows over a list of
+# devices), on PyTorch tensors, with hand-written CUDA kernels on the card.
 from .api import (
     FreshDiskANNPolicy,
     IPDiskANNPolicy,
@@ -18,6 +18,8 @@ from .api import (
     auto_unroll,
     available_policies,
     clone_state,
+    compact_owner_batch,
+    compact_owner_segment,
     consolidate_if_needed,
     delete_batch,
     device_sweep,
@@ -43,10 +45,11 @@ from .backend import (
     resolve_backend,
 )
 from .batched import insert_many_batched, ip_delete_many_batched
-from .consolidate import (consolidation_due, fresh_consolidate,
-                          light_consolidate)
+from .consolidate import (consolidate_stacked, consolidation_due,
+                          fresh_consolidate, light_consolidate)
 from .delete import (ip_delete, ip_delete_many, lazy_delete,
                      lazy_delete_many, local_delete, local_delete_many)
+from .distributed import ShardedIndex, as_int_payload
 from .driver import RunbookReport, StepMetrics, run_runbook
 from .grow import (HIGH_WATER, ensure_capacity, grow_index, needs_growth,
                    next_capacity)
@@ -79,6 +82,8 @@ from .types import (
     init_index_state,
     init_state,
     noop_update_batch,
+    stack_states,
     stack_update_batches,
     take_update_lanes,
+    unstack_state,
 )

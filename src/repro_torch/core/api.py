@@ -3,8 +3,10 @@
 for queries, the ``UpdatePolicy`` registry (``ip``, ``fresh``, ``local``),
 the consolidation trigger, and whole-segment update streams
 (``apply_segment`` over a (T, B) op tensor, ``plan_segments`` /
-``run_segments`` over an arbitrary op stream), and ``take_snapshot``, the
-published read states of the serving layer.  The reference's
+``run_segments`` over an arbitrary op stream), ``take_snapshot`` (the
+published read states of the serving layer) and the owner-compaction
+packers of the sharded index (``compact_owner_batch`` /
+``compact_owner_segment``, host numpy).  The reference's
 ``consolidation_fields`` / ``consolidate_narrow`` only keep the vector
 table out of a ``lax.cond``'s operands, and its ``TRACE_COUNTER`` /
 ``TRACE_UNROLL`` count JAX traces; eager PyTorch has neither, so they have
@@ -49,6 +51,7 @@ from .types import (
     clip_ids,
     noop_update_batch,
     stack_update_batches,
+    take_update_lanes,
 )
 
 
@@ -270,6 +273,126 @@ def mixed_update_batch(ins_ext, ins_vectors, del_ext, dim: int,
     dele = delete_batch(del_ext, dim, device=device)
     batch = UpdateBatch(*[torch.cat([a, b]) for a, b in zip(ins, dele)])
     return batch, ins.kind.shape[0]
+
+
+# ---------------------------------------------------------------------------
+# Owner-compacted sharding constructors (ShardedIndex host helpers)
+# ---------------------------------------------------------------------------
+
+
+def _np(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _np_update_batch(batch: UpdateBatch) -> UpdateBatch:
+    return UpdateBatch(*[_np(f) for f in batch])
+
+
+def _compact_owner_batch_np(batch: UpdateBatch, owners, n_shards: int,
+                            *, bucket: Optional[int] = None):
+    """``compact_owner_batch`` on numpy payloads (the segment packer loops
+    this per step and makes tensors once)."""
+    b = _np_update_batch(batch)
+    owners = np.where(b.valid, _np(owners), -1)
+    if owners.size and int(owners.max()) >= n_shards:
+        raise ValueError(
+            f"owner id(s) >= n_shards={n_shards}: "
+            f"{np.unique(owners[owners >= n_shards]).tolist()}"
+        )
+    counts = np.bincount(owners[owners >= 0], minlength=n_shards)
+    need = int(counts.max())
+    if bucket is None:
+        bucket = next_bucket(max(need, 1))
+    if need > bucket:
+        raise ValueError(
+            f"per-shard bucket {bucket} < max owned lanes {need}"
+        )
+    dim = b.vector.shape[1]
+    pos = np.full(owners.shape, -1, np.int32)
+    out = UpdateBatch(
+        kind=np.full((n_shards, bucket), KIND_INSERT, np.int32),
+        ext_id=np.full((n_shards, bucket), INVALID, np.int32),
+        vector=np.zeros((n_shards, bucket, dim), np.float32),
+        valid=np.zeros((n_shards, bucket), bool),
+    )
+    for s in range(n_shards):
+        idx = np.nonzero(owners == s)[0]
+        pos[idx] = np.arange(len(idx), dtype=np.int32)
+        sub = take_update_lanes(b, idx)
+        out.kind[s, : len(idx)] = sub.kind
+        out.ext_id[s, : len(idx)] = sub.ext_id
+        out.vector[s, : len(idx)] = sub.vector
+        out.valid[s, : len(idx)] = sub.valid
+    return out, pos, bucket
+
+
+def _batch_to(batch: UpdateBatch, device=None) -> UpdateBatch:
+    """An ``UpdateBatch`` of numpy arrays or tensors as tensors on
+    ``device`` (default: the card)."""
+    dev = torch.device("cuda" if device is None else device)
+    return UpdateBatch(*(f.to(dev) if isinstance(f, torch.Tensor) else
+                         torch.from_numpy(np.ascontiguousarray(f)).to(dev)
+                         for f in batch))
+
+
+def compact_owner_batch(batch: UpdateBatch, owners, n_shards: int,
+                        *, bucket: Optional[int] = None, device=None):
+    """Pack each shard's owned lanes of one ``UpdateBatch`` into a compact
+    per-shard sub-batch.
+
+    ``owners``: i32[B] owning shard per lane (negative = unowned; values at
+    or beyond ``n_shards`` are a ``ValueError``; invalid lanes are ignored
+    regardless).  Returns ``(stacked, pos, bucket)``:
+
+      * ``stacked``: an (S, bucket) ``UpdateBatch`` on ``device`` (default:
+        the card); row ``s`` holds shard ``s``'s owned lanes in their
+        original relative order, padded to the power-of-two ``bucket`` with
+        masked no-op lanes, so each shard applies ~B/S lanes instead of
+        masking S-1 of every replicated lane;
+      * ``pos``: i32[B] numpy, lane i's position inside its owner's
+        sub-batch (-1 for unowned or invalid lanes), to scatter per-lane
+        results back to the caller's lane order;
+      * ``bucket``: the per-shard lane width used (``next_bucket`` of the
+        most owned lanes unless pinned).
+
+    Per-shard relative lane order is kept, so per-shard serial semantics
+    equal the replicate-and-mask layout's bit for bit.
+    """
+    out, pos, bucket = _compact_owner_batch_np(batch, owners, n_shards,
+                                               bucket=bucket)
+    return _batch_to(out, device), pos, bucket
+
+
+def compact_owner_segment(ops: UpdateBatch, owners, n_shards: int,
+                          *, bucket: Optional[int] = None, device=None):
+    """Owner-compact every op of a (T, B) segment tensor into one
+    (S, T, bucket) op tensor on ``device`` (default: the card).
+
+    ``owners``: i32[T, B].  One common power-of-two ``bucket`` (the most
+    owned lanes over every (shard, op) cell unless pinned) keeps the
+    stacked tensor one shape, so each shard scans T ops of ~B/S lanes.
+    Returns ``(stacked, pos, bucket)`` with ``pos`` i32[T, B] as in
+    ``compact_owner_batch``.
+    """
+    ops_np = _np_update_batch(ops)
+    owners = np.where(ops_np.valid, _np(owners), -1)
+    t_steps = ops_np.kind.shape[0]
+    need = 1
+    for t in range(t_steps):
+        row = owners[t]
+        counts = np.bincount(row[row >= 0], minlength=n_shards)
+        need = max(need, int(counts.max()))
+    if bucket is None:
+        bucket = next_bucket(need)
+    steps, pos = [], []
+    for t in range(t_steps):
+        sub, p, _ = _compact_owner_batch_np(
+            take_update_lanes(ops_np, t), owners[t], n_shards, bucket=bucket
+        )
+        steps.append(sub)
+        pos.append(p)
+    stacked = UpdateBatch(*[np.stack(arrs, axis=1) for arrs in zip(*steps)])
+    return _batch_to(stacked, device), np.stack(pos), bucket
 
 
 # ---------------------------------------------------------------------------
@@ -624,7 +747,8 @@ __all__ = [
     "FreshDiskANNPolicy", "IPDiskANNPolicy", "LocalRepairPolicy", "Segment",
     "SegmentPlan", "SnapshotHandle", "UpdatePolicy", "apply",
     "apply_segment", "auto_unroll",
-    "available_policies", "clone_state", "consolidate_if_needed",
+    "available_policies", "clone_state", "compact_owner_batch",
+    "compact_owner_segment", "consolidate_if_needed",
     "delete_batch", "device_sweep", "get_policy", "insert_batch",
     "make_update_batch", "maybe_consolidate", "mixed_update_batch",
     "pad_update_batch", "plan_segments", "register_policy", "run_segments",

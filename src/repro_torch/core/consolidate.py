@@ -11,6 +11,9 @@ the affected rows are found on the device, read back, and pruned in chunks
 sized to ``CONSOLIDATE_CHUNK_BYTES`` of gathered candidate rows; every chunk
 reads the adjacency as it was before the pass, and the new rows are written
 at the end.
+
+``consolidate_stacked`` runs either pass on chosen rows of a stacked
+(sharded) graph, in place.
 """
 from __future__ import annotations
 
@@ -19,7 +22,8 @@ from typing import Optional
 import torch
 
 from .prune import robust_prune_rows
-from .types import INVALID, ANNConfig, GraphState, clip_ids, compact_row
+from .types import (INVALID, ANNConfig, GraphState, clip_ids, compact_row,
+                    unstack_state)
 
 # device bytes of gathered candidate rows ((chunk, r + r^2, dim) f32) that
 # one chunk of Algorithm 4 may hold
@@ -145,3 +149,30 @@ def fresh_consolidate(state: GraphState, cfg: ANNConfig,
                 for i in range(0, affected.numel(), chunk)]
         state.adj[affected] = torch.cat(rows)
     return _release_tombstones(state, cfg)
+
+
+def _write_back(dst, src) -> None:
+    """Copy every tensor leaf of ``src`` into ``dst`` (a view of a stacked
+    state's row), skipping leaves that already are that view."""
+    if dst is None:
+        return
+    if isinstance(dst, torch.Tensor):
+        if src is not dst:
+            dst.copy_(src)
+        return
+    for d, s in zip(dst, src):
+        _write_back(d, s)
+
+
+def consolidate_stacked(graphs: GraphState, cfg: ANNConfig, consolidate_fn,
+                        shard_ids) -> GraphState:
+    """Run a per-row consolidation pass over a STACKED ``GraphState``
+    (leading logical-shard axis).  For each row in ``shard_ids``: run
+    ``consolidate_fn(graph, cfg)`` (fresh's Algorithm 4, or
+    ``light_consolidate``) on the row's views and write the result back
+    into the stacked tensors in place with ``copy_``: O(one row) in copies.
+    Returns ``graphs``, updated in place."""
+    rows = unstack_state(graphs)
+    for s in shard_ids:
+        _write_back(rows[s], consolidate_fn(rows[s], cfg))
+    return graphs

@@ -6,7 +6,9 @@ stream exhausts its slots, ``StreamingIndex`` grows the state into the next
 power-of-two capacity bucket when the live count would cross a high-water
 mark.  ``grow_index`` pads every graph leaf (vectors, norms, adj, masks, the
 quant store), the free stack and ``slot2ext`` into the new bucket and
-returns a new handle; the input handle stays valid.  ``ext2slot``, the
+returns a new handle; the input handle stays valid.  A stacked state
+(``ShardedIndex``'s leading ``n_logical`` axis) grows row by row, in
+lockstep, and is stacked again.  ``ext2slot``, the
 counters, the entry point and all live rows are untouched, so searches see
 the identical graph.
 
@@ -23,7 +25,8 @@ from typing import Tuple
 import torch
 
 from .quant import QuantStore
-from .types import INVALID, ANNConfig, GraphState, IndexState
+from .types import (INVALID, ANNConfig, GraphState, IndexState,
+                    stack_states, unstack_state)
 
 # Grow when (live + incoming) would exceed this fraction of capacity: the
 # graph needs free slots for in-flight quarantined rows, and growing before
@@ -80,20 +83,21 @@ def _grow_graph(g: GraphState, cfg: ANNConfig, new_cap: int) -> GraphState:
 
 def grow_index(state: IndexState, cfg: ANNConfig,
                new_cap: int) -> Tuple[IndexState, ANNConfig]:
-    """Rebuild ``state`` into capacity ``new_cap`` >= ``cfg.n_cap``.
-    Returns ``(new_state, new_cfg)``; the input handle stays valid."""
+    """Rebuild ``state`` (single or stacked) into capacity ``new_cap`` >=
+    ``cfg.n_cap``.  Returns ``(new_state, new_cfg)``; the input handle
+    stays valid."""
     if new_cap < cfg.n_cap:
         raise ValueError(
             f"grow_index cannot shrink: {cfg.n_cap} -> {new_cap}"
         )
-    if state.graph.vectors.dim() == 3:
-        raise NotImplementedError(
-            "growing a stacked (sharded) state waits for the sharding slice "
-            "(ROADMAP Queue 1, slice 14)"
-        )
     new_cfg = dataclasses.replace(cfg, n_cap=new_cap)
     if new_cap == cfg.n_cap:
         return state, new_cfg
+    if state.graph.vectors.dim() == 3:
+        # a stacked (L, ...) state: every logical row grows in lockstep
+        rows = [grow_index(row, cfg, new_cap)[0]
+                for row in unstack_state(state)]
+        return stack_states(rows), new_cfg
     # every leaf of the new handle is a new tensor: the port updates
     # handles in place, so sharing one would let updates of the grown
     # handle leak into the input handle
@@ -108,8 +112,9 @@ def grow_index(state: IndexState, cfg: ANNConfig,
 
 def needs_growth(state: IndexState, cfg: ANNConfig, incoming: int) -> bool:
     """Host-side trigger: would ``incoming`` more inserts push the live
-    count past the high-water mark?"""
-    free = int(state.graph.free_top)
+    count past the high-water mark?  (A stacked state counts its fullest
+    row, so every logical row grows in lockstep.)"""
+    free = int(state.graph.free_top.min())
     return (cfg.n_cap - free) + incoming > HIGH_WATER * cfg.n_cap
 
 
@@ -119,7 +124,7 @@ def ensure_capacity(state: IndexState, cfg: ANNConfig, incoming: int
     the high-water mark.  Returns ``(state, cfg, grew)``."""
     if not needs_growth(state, cfg, incoming):
         return state, cfg, False
-    needed = (cfg.n_cap - int(state.graph.free_top)) + incoming
+    needed = (cfg.n_cap - int(state.graph.free_top.min())) + incoming
     state, cfg = grow_index(state, cfg, next_capacity(needed, cfg.n_cap))
     return state, cfg, True
 

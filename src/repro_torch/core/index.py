@@ -32,7 +32,7 @@ from .api import (apply, available_policies, delete_batch, get_policy,
                   insert_batch, maybe_consolidate, plan_segments,
                   run_segments, search)
 from .grow import ensure_capacity
-from .persist import restore_index, save_index
+from .persist import CheckpointMismatchError, restore_index, save_index
 from .recall import brute_force_topk, recall_at_k
 from .types import KIND_INSERT, ANNConfig, GraphState, IndexState, \
     init_index_state, resolve_device
@@ -270,10 +270,16 @@ class StreamingIndex:
         the card).  Returns ``(index, step)``; the serving and eval
         counters resume from the checkpointed values.  ``mode`` defaults
         to the checkpoint's policy; given, it is validated against it
-        (``CheckpointMismatchError``)."""
+        (``CheckpointMismatchError``, as is a stacked checkpoint of
+        ``ShardedIndex``)."""
         step, istate, extra = restore_index(manager, cfg, step=step,
                                             policy=mode, device=device)
         meta, user = extra["index"], extra.get("user", {})
+        if meta["n_logical"]:
+            raise CheckpointMismatchError(
+                f"checkpoint holds a {meta['n_logical']}-shard stacked "
+                f"state; restore it with ShardedIndex.restore"
+            )
         # the constructor's empty handle is replaced at once: it is
         # allocated on the meta device, which holds no data
         idx = cls(

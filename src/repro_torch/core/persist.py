@@ -18,24 +18,28 @@
     trip is exact, so the recovered state is bitwise the uninterrupted
     run's.
 
+Both take a single handle or ``ShardedIndex``'s stacked (L, ...) state:
+the manifest's ``n_logical`` is 0 for a single handle and L for a stack,
+which ``ShardedIndex.restore`` lays over any device list whose length
+divides L (elastic reshard).
+
 The port updates the handle in place (the reference donates it), so a
 failure in the middle of a segment leaves the handle half-written: the
-supervised runner never goes on with it, it restores.  A stacked (sharded)
-checkpoint (``n_logical`` >= 1) is a ``CheckpointMismatchError`` until the
-port has ``ShardedIndex`` (ROADMAP Queue 1, slice 14); this package writes
-``n_logical = 0``.
+supervised runner never goes on with it, it restores.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
+
 from ..checkpoint.manager import (CheckpointManager, CheckpointMismatchError,
                                   restore_onto)
 from ..ft.supervisor import SimulatedFailure
 from .api import SegmentPlan, segment_step
 from .grow import grow_index
-from .types import ANNConfig, IndexState, init_index_state
+from .types import ANNConfig, IndexState, init_index_state, stack_states
 
 # bumped whenever the IndexState layout changes incompatibly (the
 # reference's value: the two packages share the format)
@@ -49,7 +53,7 @@ CFG_CRITICAL = ("dim", "r", "metric", "quantized")
 
 
 def _index_meta(state: IndexState, cfg: ANNConfig, policy: str) -> dict:
-    stacked = state.graph.vectors.dim() == 3
+    stacked = state.graph.vectors.ndim == 3
     return {
         "kind": "index_state",
         "schema": SCHEMA_VERSION,
@@ -64,7 +68,8 @@ def save_index(manager: CheckpointManager, step: int, state: IndexState,
                cfg: ANNConfig, *, policy: str = "ip",
                extra: Optional[dict] = None,
                on_event: Optional[Callable[[str], None]] = None):
-    """Checkpoint the whole ``IndexState`` at ``step``.  The manifest's
+    """Checkpoint the whole ``IndexState`` (single or stacked, tensors or
+    numpy arrays) at ``step``.  The manifest's
     ``extra`` holds the index metadata under ``"index"`` and the caller's
     ``extra`` under ``"user"``; ``on_event`` goes to
     ``CheckpointManager.save`` (crash injection).  Reads the state (one
@@ -121,10 +126,12 @@ def restore_index(manager: CheckpointManager, cfg: ANNConfig, *,
     the metadata (policy, max_external_id, n_logical, saved config).
 
     Validation raises ``CheckpointMismatchError``: schema, critical config,
-    a capacity above the caller's, policy (when given), a stacked state,
-    every leaf's shape and dtype against a template of the manifest's
-    capacity.  A smaller capacity is grown into ``cfg.n_cap``, so
-    ``grow(restore(save(s)))`` equals ``restore(save(grow(s)))`` bitwise.
+    a capacity above the caller's, policy (when given), every leaf's shape
+    and dtype against a template of the manifest's capacity and
+    ``n_logical`` (a stacked checkpoint restores as the stacked (L, ...)
+    state, as the reference's does).  A smaller capacity is grown into
+    ``cfg.n_cap``, so ``grow(restore(save(s)))`` equals
+    ``restore(save(grow(s)))`` bitwise.
 
     ``device``: where the tensors land (default: the card); ``False``
     returns numpy leaves."""
@@ -133,16 +140,12 @@ def restore_index(manager: CheckpointManager, cfg: ANNConfig, *,
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {manager.dir}")
     meta = validate_index_manifest(manager.manifest(step), cfg, policy)
-    if meta["n_logical"]:
-        raise CheckpointMismatchError(
-            f"checkpoint holds a {meta['n_logical']}-shard stacked state; "
-            f"the port restores single IndexState checkpoints only "
-            f"(sharding is not ported yet)"
-        )
     saved_cap = int(meta.get("config", {}).get("n_cap", cfg.n_cap))
     load_cfg = dataclasses.replace(cfg, n_cap=saved_cap)
     template = init_index_state(load_cfg, meta["max_external_id"],
                                 device="meta")
+    if meta["n_logical"]:
+        template = stack_states([template] * meta["n_logical"])
     step, tree, extra = manager.load(step, like=template)
     if saved_cap == cfg.n_cap and device is False:
         return step, tree, extra
@@ -155,11 +158,12 @@ def restore_index(manager: CheckpointManager, cfg: ANNConfig, *,
 
 
 def _numpy_tree(x):
-    if x is None:
-        return None
+    """A tree of tensors (any device) or numpy arrays with numpy leaves."""
+    if x is None or isinstance(x, np.ndarray):
+        return x
     if isinstance(x, tuple):
         return type(x)(*(_numpy_tree(c) for c in x))
-    return x.numpy()
+    return x.cpu().numpy()
 
 
 # ---------------------------------------------------------------------------

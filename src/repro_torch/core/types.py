@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .quant import QuantStore, init_quant_store
@@ -165,6 +166,40 @@ def take_update_lanes(batch: UpdateBatch, idx) -> UpdateBatch:
         vector=batch.vector[idx],
         valid=batch.valid[idx],
     )
+
+
+def stack_states(rows, device=None):
+    """Stack same-shaped states (``IndexState``, ``GraphState``, any tuple
+    of tensors, ``None`` leaves kept) on a new leading axis, on ``device``
+    (default: the first row's).  Numpy rows stack with ``np.stack``."""
+    first = rows[0]
+    if first is None:
+        return None
+    if isinstance(first, np.ndarray):
+        return np.stack(rows)
+    if isinstance(first, torch.Tensor):
+        dev = first.device if device is None else torch.device(device)
+        return torch.stack([r.to(dev) for r in rows])
+    return type(first)(*(stack_states(col, device) for col in zip(*rows)))
+
+
+def unstack_state(state):
+    """The rows of a stacked state (``IndexState``, ``GraphState``, ...):
+    views ``x[l]`` of every leaf (numpy or torch), one state per index of
+    the leading axis."""
+    def row(x, i):
+        if x is None:
+            return None
+        if isinstance(x, tuple):
+            return type(x)(*(row(c, i) for c in x))
+        return x[i]
+
+    def leading(x):
+        if isinstance(x, tuple):
+            return next(n for n in map(leading, x) if n is not None)
+        return None if x is None else x.shape[0]
+
+    return [row(state, i) for i in range(leading(state))]
 
 
 def resolve_device(device=None) -> torch.device:

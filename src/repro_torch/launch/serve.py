@@ -4,6 +4,7 @@ delete stream while answering queries, with no consolidation pauses.
 
     python -m repro_torch.launch.serve --ticks 40 --rate 64 --dim 32
     python -m repro_torch.launch.serve --device cpu --ticks 12 --rate 16
+    python -m repro_torch.launch.serve --shards 4    # the sharded index
 
 The launcher drives the ``repro_torch.serving`` front door: each tick's
 queries are admitted one at a time and coalesced by the deadline-driven
@@ -20,8 +21,12 @@ Durability: ``--checkpoint-dir`` checkpoints the index every
 rebuild exactly the state an uninterrupted run would have had:
 
     python -m repro_torch.launch.serve --checkpoint-dir DIR --kill-at 17
+    python -m repro_torch.launch.serve --shards 4 --checkpoint-dir DIR
 
-The sharded engine (``--shards``) waits for ROADMAP slice 14.
+``--shards N`` serves a ``ShardedIndex`` of N logical rows through a
+``ShardedEngine``, laid over N entries of ``--device`` (one device
+repeated; the answers do not depend on the layout).  As in the reference,
+the sharded index runs the ip policy and its tick lines carry no recall.
 """
 from __future__ import annotations
 
@@ -30,7 +35,8 @@ import time
 
 
 def main(argv=None):
-    """Run the launcher; returns the final ``StreamingIndex``."""
+    """Run the launcher; returns the final ``StreamingIndex`` (with
+    ``--shards``: the final ``ShardedIndex``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--dim", type=int, default=32)
     ap.add_argument("--rate", type=int, default=64, help="inserts per tick")
@@ -39,8 +45,8 @@ def main(argv=None):
     ap.add_argument("--queries", type=int, default=32)
     ap.add_argument("--mode", default="ip", choices=["ip", "fresh"])
     ap.add_argument("--shards", type=int, default=0,
-                    help="the sharded engine: not ported yet (ROADMAP "
-                         "slice 14); only 0 runs")
+                    help="serve a ShardedIndex of N logical rows over N "
+                         "entries of --device")
     ap.add_argument("--deadline-ms", type=float, default=5.0,
                     help="dynamic-batcher admission deadline per query")
     ap.add_argument("--bucket", type=int, default=32,
@@ -55,18 +61,19 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="where the index lives (default: the card)")
     args = ap.parse_args(argv)
-
-    if args.shards:
-        ap.error(f"--shards {args.shards}: the sharded engine is not "
-                 f"ported yet (ROADMAP slice 14); run without --shards")
+    if args.shards < 0:
+        ap.error(f"--shards {args.shards}: the number of logical rows "
+                 f"must be >= 0 (0: the single StreamingIndex)")
 
     from ..checkpoint import CheckpointManager
     from ..configs.ann import test_scale
-    from ..core import StreamingIndex
+    from ..core import ShardedIndex, StreamingIndex
     from ..core.api import delete_batch, insert_batch
+    from ..core.types import resolve_device
     from ..data import VectorStream
     from ..ft.supervisor import SimulatedFailure
-    from ..serving import ServingFront, ServingMetrics, StreamingEngine
+    from ..serving import (ServingFront, ServingMetrics, ShardedEngine,
+                           StreamingEngine)
 
     n_cap = args.rate * (args.lifetime + 4)
     stream = VectorStream(dim=args.dim, rate=args.rate,
@@ -77,14 +84,32 @@ def main(argv=None):
     max_ext = args.rate * (args.ticks + 1)
     cfg = test_scale(args.dim, n_cap)
 
-    def fresh_index():
-        return StreamingIndex(cfg, mode=args.mode, max_external_id=max_ext,
-                              device=args.device)
+    device = resolve_device(args.device)
+    if args.shards:
+        devices = [device] * args.shards
 
-    def restore(mgr):
-        idx, t = StreamingIndex.restore(mgr, cfg, device=args.device)
-        print(f"restored checkpoint at tick {t}", flush=True)
-        return idx, t
+        def fresh_index():
+            return ShardedIndex(cfg, devices, max_external_id=max_ext)
+
+        def restore(mgr):
+            idx, t = ShardedIndex.restore(mgr, cfg, devices)
+            print(f"restored sharded checkpoint at tick {t} "
+                  f"({idx.n_logical} logical shards on {idx.n_shards} "
+                  f"devices)", flush=True)
+            return idx, t
+
+        make_engine = ShardedEngine
+    else:
+        def fresh_index():
+            return StreamingIndex(cfg, mode=args.mode,
+                                  max_external_id=max_ext, device=device)
+
+        def restore(mgr):
+            idx, t = StreamingIndex.restore(mgr, cfg, device=device)
+            print(f"restored checkpoint at tick {t}", flush=True)
+            return idx, t
+
+        make_engine = StreamingEngine
 
     # one metrics object across crash / restore cycles: the summary
     # reflects everything this process served, replayed ticks included
@@ -92,7 +117,7 @@ def main(argv=None):
 
     def make_front(idx):
         return ServingFront(
-            StreamingEngine(idx),
+            make_engine(idx),
             deadline_s=args.deadline_ms * 1e-3,
             max_bucket=args.bucket,
             k=10,
@@ -117,12 +142,12 @@ def main(argv=None):
             # writer lane: this tick's stream step as admitted updates
             ins_ids, vecs, del_ids = stream.step_at(t)
             front.submit_update(
-                insert_batch(ins_ids, vecs, device=idx.device),
+                insert_batch(ins_ids, vecs, device=device),
                 time.perf_counter()
             )
             if len(del_ids):
                 front.submit_update(
-                    delete_batch(del_ids, args.dim, device=idx.device),
+                    delete_batch(del_ids, args.dim, device=device),
                     time.perf_counter()
                 )
             # reader lane: admit queries one at a time; full buckets leave
@@ -135,9 +160,11 @@ def main(argv=None):
             if nd is not None:
                 front.pump(nd)      # flush the tick's deadline tail
             if t % 10 == 0:
-                print(f"tick {t:3d} {front.metrics.log_line()}"
-                      f" recall@10={idx.recall(q, k=10):.3f}"
-                      f" active={idx.n_active}", flush=True)
+                line = f"tick {t:3d} {front.metrics.log_line()}"
+                if not args.shards:
+                    line += (f" recall@10={idx.recall(q, k=10):.3f}"
+                             f" active={idx.n_active}")
+                print(line, flush=True)
             t += 1
             if mgr is not None and t % args.checkpoint_every == 0:
                 idx.save(mgr, t)
@@ -149,8 +176,9 @@ def main(argv=None):
             print(f"crash ({e}); restored tick {t}, replaying", flush=True)
 
     s = metrics.stats(horizon_s=time.perf_counter() - wall0)
+    label = f"shards={args.shards}" if args.shards else f"mode={args.mode}"
     print(
-        f"served {args.ticks} ticks mode={args.mode}: "
+        f"served {args.ticks} ticks {label}: "
         f"q={s['n_queries']} p50={s['p50_ms']:.2f}ms "
         f"p99={s['p99_ms']:.2f}ms fill={s['batch_fill']:.2f} | "
         f"phase wall-clock: search={s['search_s']:.2f}s "

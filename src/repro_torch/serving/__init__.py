@@ -3,11 +3,10 @@
 Admission queue + deadline-driven dynamic batching (``batcher``),
 double-buffered snapshot-isolated read states (``snapshot``), serving
 metrics (``metrics``), and the ``ServingFront`` composing them over a
-``StreamingIndex`` engine (``front``).  The reference's ``ShardedEngine``
-waits for the sharded index (ROADMAP slice 14).
+``StreamingIndex`` or ``ShardedIndex`` engine (``front``).
 """
 from .batcher import Dispatch, DynamicBatcher, QueryRequest, group_vectors
-from .front import ServingFront, StreamingEngine
+from .front import ServingFront, ShardedEngine, StreamingEngine
 from .metrics import ServingMetrics, percentile
 from .snapshot import SnapshotStore
 
@@ -17,6 +16,7 @@ __all__ = [
     "QueryRequest",
     "ServingFront",
     "ServingMetrics",
+    "ShardedEngine",
     "SnapshotStore",
     "StreamingEngine",
     "group_vectors",

@@ -33,8 +33,10 @@ arrival trace and the deadline / bucket knobs.  With a ``service_model``
 injected, completion times are deterministic too, so a fixed trace
 replays to the reference's dispatch groups, times and answers.
 
-``StreamingEngine`` adapts a ``StreamingIndex``; the reference's
-``ShardedEngine`` waits for the sharded index (ROADMAP slice 14).
+Engines adapt the two index front doors behind one surface:
+``StreamingEngine`` (one ``IndexState`` through ``core/api.py``) and
+``ShardedEngine`` (the L row handles of a ``ShardedIndex``, searched with
+its replicate-and-merge search against a snapshot of every row).
 """
 from __future__ import annotations
 
@@ -98,6 +100,54 @@ class StreamingEngine:
             k=k, l=l or self.cfg.l_search,
         )
         return ext.cpu().numpy(), dists.cpu().numpy()
+
+
+class ShardedEngine:
+    """Serve adapter over a ``ShardedIndex``: updates route to their owner
+    rows through the index's compact or replicate update path (the ip and
+    local sweeps run inside it), reads run the replicate-and-merge search
+    (``ShardedIndex.search_state``) against a SNAPSHOT of the rows.  Like
+    ``StreamingEngine`` it synchronises every device of the index before
+    ``clone`` and ``apply_update`` return, so each lane is charged its own
+    device time."""
+
+    def __init__(self, index):
+        self.idx = index
+        self.cfg = index.cfg
+
+    @property
+    def dim(self) -> int:
+        return self.cfg.dim
+
+    @property
+    def device(self) -> torch.device:
+        return self.idx.devices[0]
+
+    def live_state(self):
+        return self.idx.rows
+
+    def clone(self, rows, seq: int) -> SnapshotHandle:
+        # every row deep-copied: the live rows are written in place
+        snap = SnapshotHandle(seq=int(seq),
+                              state=self.idx.snapshot_states(rows))
+        self.idx.synchronize()
+        return snap
+
+    def apply_update(self, batch: UpdateBatch) -> int:
+        """Apply one padded batch to the owner rows; returns the number of
+        lanes that applied."""
+        valid = batch.valid.cpu().numpy()
+        owners = np.where(
+            valid, self.idx.route(batch.ext_id.cpu().numpy()), -1
+        ).astype(np.int32)
+        ok, _ = self.idx._apply_update(batch, owners)
+        self.idx.synchronize()
+        return int(ok.sum())
+
+    def search(self, rows, queries: np.ndarray, k: int, l: Optional[int]):
+        ids, _, dists, _ = self.idx.search_state(
+            rows, queries, k=k, l=l or self.cfg.l_search)
+        return ids, dists
 
 
 class ServingFront:
@@ -282,5 +332,6 @@ class ServingFront:
 
 __all__ = [
     "ServingFront",
+    "ShardedEngine",
     "StreamingEngine",
 ]

@@ -9,9 +9,11 @@
     shapes and dtypes as JAX's ``_flatten`` (f32 and int8 tiers), and a
     checkpoint written by either package restores in the other to
     identical leaves;
-  * ``restore_index``'s validation (config, policy, schema, capacity,
-    stacked states) raises ``CheckpointMismatchError``; a smaller bucket
-    restores grown, bitwise;
+  * ``restore_index``'s validation (config, policy, schema, capacity)
+    raises ``CheckpointMismatchError``; a smaller bucket restores grown,
+    bitwise; a stacked (sharded) checkpoint restores as the stacked state,
+    bitwise the reference's, and ``StreamingIndex.restore`` refuses it;
+    ``grow_index`` on a stacked state equals the reference's;
   * ``run_segments_supervised`` after injected failures, including kills
     inside a save, ends bitwise equal to an uninterrupted ``run_segments``;
   * ``StreamingIndex.save`` / ``restore``, on the CPU and, on the card,
@@ -42,7 +44,8 @@ from repro_torch.core.grow import grow_index
 from repro_torch.core.persist import (restore_index, run_segments_supervised,
                                       save_index)
 from repro_torch.core.runbook import make_runbook, runbook_segment_plan
-from repro_torch.core.types import KIND_INSERT, init_index_state
+from repro_torch.core.types import KIND_INSERT, init_index_state, \
+    unstack_state
 from repro_torch.ft import SimulatedFailure, Supervisor
 
 DIM = 24
@@ -377,22 +380,67 @@ def test_restore_no_checkpoints(tmp_path):
         restore_index(CheckpointManager(tmp_path), CFG, device="cpu")
 
 
+def _stacked_state(n_cap=256, n=120):
+    """A two-row ``ShardedIndex`` on grid data and its stacked state."""
+    from repro_torch.core import ShardedIndex
+
+    idx = ShardedIndex(scaled_cfg(dim=16, n_cap=n_cap, backend="torch"),
+                       ["cpu"], n_logical=2, max_external_id=512)
+    idx.insert(np.arange(n), grid_data(n, 16, 29))
+    idx.delete(np.arange(0, n, 9))
+    return idx, idx.states
+
+
 def test_stacked_checkpoint_is_typed_mismatch(tmp_path):
-    """A stacked (sharded) checkpoint: ``n_logical`` >= 1 in the manifest
-    is refused until the port has ``ShardedIndex``."""
-    one = init_index_state(CFG, 64, device="cpu")
-    stacked = type(one)(
-        graph=type(one.graph)(*(torch.stack([x, x]) for x in one.graph
-                                if x is not None)),
-        **{f: torch.stack([getattr(one, f)] * 2)
-           for f in one._fields if f != "graph"})
+    """A stacked (sharded) checkpoint (``n_logical`` >= 1): ``restore_index``
+    returns the stacked state, bitwise the reference's ``restore_index``
+    (also into a larger bucket, grown row by row);
+    ``StreamingIndex.restore`` refuses it as the reference does, and so
+    does ``ShardedIndex.restore`` onto a layout that does not divide L."""
+    from repro.checkpoint import CheckpointManager as JManager
+    from repro.configs.ann import test_scale as j_test_scale
+    from repro.core.persist import restore_index as j_restore
+    from repro_torch.core import ShardedIndex
+
+    idx, stacked = _stacked_state()
     mgr = CheckpointManager(tmp_path)
-    save_index(mgr, 1, stacked, CFG)
+    save_index(mgr, 1, stacked, idx.cfg)
     assert mgr.manifest()["extra"]["index"]["n_logical"] == 2
+    for n_cap in (256, 512):
+        tcfg = dataclasses.replace(idx.cfg, n_cap=n_cap)
+        _, got, extra = restore_index(mgr, tcfg, device="cpu")
+        assert extra["index"]["n_logical"] == 2
+        assert got.graph.vectors.shape == (2, n_cap, 16)
+        _, want, _ = j_restore(JManager(tmp_path), j_test_scale(16, n_cap))
+        assert_index_equal(want, got, where=f"n_cap {n_cap}")
+    _, as_numpy, _ = restore_index(mgr, idx.cfg, device=False)
+    np.testing.assert_array_equal(as_numpy.graph.adj,
+                                  stacked.graph.adj.numpy())
     with pytest.raises(CheckpointMismatchError, match="stacked"):
-        restore_index(mgr, CFG, device="cpu")
-    with pytest.raises(CheckpointMismatchError, match="stacked"):
-        TIndex.restore(mgr, CFG, device="cpu")
+        TIndex.restore(mgr, idx.cfg, device="cpu")
+    with pytest.raises(CheckpointMismatchError, match="reshard"):
+        ShardedIndex.restore(mgr, idx.cfg, ["cpu"] * 3)
+
+
+def test_grow_stacked_matches_reference():
+    """``grow_index`` on a stacked state grows every row in lockstep, as
+    the reference's vmapped grow does; the input handle stays valid."""
+    from repro.configs.ann import test_scale as j_test_scale
+    from repro.core.grow import grow_index as j_grow
+
+    idx, stacked = _stacked_state(n_cap=128, n=100)
+    held = convert.index_state_to_numpy(stacked)
+    jstate = jax_index_state(held)
+    want, jcfg = j_grow(jstate, j_test_scale(16, 128), 512)
+    got, tcfg = grow_index(stacked, idx.cfg, 512)
+    assert tcfg.n_cap == jcfg.n_cap == 512
+    assert got.graph.free_stack.shape == (2, 512)
+    assert_index_equal(want, got, where="grown stack")
+    for r, (row, grown) in enumerate(zip(idx.rows, unstack_state(got))):
+        assert_port_equal(grow_index(row, idx.cfg, 512)[0], grown,
+                          f"row {r}")
+    after = convert.index_state_to_numpy(stacked)
+    np.testing.assert_array_equal(after["graph"]["adj"], held["graph"]["adj"])
 
 
 # -- growth ---------------------------------------------------------------------

@@ -16,7 +16,10 @@ reference (``repro.serving``), on the CPU.
     answers (distances bitwise on grid data) and ``stats()``;
   * snapshot isolation and read-your-writes for the three policies, the
     port's answers equal to the reference's at each step; the
-    ``serialize_updates`` lane contrast.
+    ``serialize_updates`` lane contrast;
+  * ``ShardedEngine`` over two logical rows: the same isolation checks,
+    every answer and the writer's rows equal to the reference's sharded
+    engine on a 1-device mesh, and a clone that shares no storage.
 """
 import numpy as np
 import pytest
@@ -460,3 +463,97 @@ def test_front_warmup_stays_on_the_index_device(start_state):
     for f in ("ext2slot", "slot2ext", "n_inserts", "n_deletes"):
         np.testing.assert_array_equal(d0[f], d1[f])
     assert ti.counters.n_inserts == 0
+
+
+# ---------------------------------------------------------------------------
+# The sharded engine behind the same front door
+# ---------------------------------------------------------------------------
+
+
+def _sharded_isolation(front, idx, insert, queries, new_ids):
+    """``tests/test_serving.py``'s sharded case: snapshot 0 answers stay
+    put under the writer, the publish brings the new ids to top-1."""
+    def serve(now):
+        reqs = [front.submit_query(q, now) for q in queries]
+        front.pump(now + 1.0)
+        return reqs
+
+    before = serve(0.0)
+    front.submit_update(insert(new_ids, queries), 1.0)
+    front.pump(2.0)
+    after = serve(3.0)
+    for r0, r1 in zip(before, after):
+        assert r0.snapshot_seq == r1.snapshot_seq == 0
+        np.testing.assert_array_equal(r0.ext_ids, r1.ext_ids)
+        np.testing.assert_array_equal(r0.dists, r1.dists)
+    front.publish(4.0)
+    final = serve(5.0)
+    for i, r in enumerate(final):
+        assert r.snapshot_seq == 1
+        assert r.ext_ids[0] == new_ids[i]
+    return [(r.ext_ids, r.dists) for r in before + after + final]
+
+
+def test_sharded_engine_matches_reference():
+    """``ServingFront(ShardedEngine(...))`` over L = 2 rows: snapshot
+    isolation and read-your-writes, every answer equal to the reference's
+    engine on a 1-device mesh with ``n_logical=2`` (grid data, bitwise),
+    the live rows equal after the writer, and ``search_state`` over a
+    snapshot equal to the live search."""
+    import jax
+
+    from repro.configs.ann import test_scale as j_test_scale
+    from repro.core import insert_batch as j_insert_batch
+    from repro.core.distributed import ShardedIndex as JShard
+    from repro.serving import ServingFront as JFront
+    from repro.serving import ShardedEngine as JEngine
+    from repro_torch.core import ShardedIndex as TShard
+
+    data = grid_data(N0, DIM, 1)
+    queries = data[:4] + np.float32(0.0625)
+    new_ids = 1000 + np.arange(4)
+    jidx = JShard(j_test_scale(DIM, 256), jax.make_mesh((1,), ("shard",)),
+                  n_logical=2, max_external_id=MAX_EXT)
+    tidx = TShard(t_test_scale(DIM, 256, backend="torch"), ["cpu"],
+                  n_logical=2, max_external_id=MAX_EXT)
+    answers = []
+    for idx, front_cls, engine_cls, insert in (
+            (jidx, JFront, JEngine, j_insert_batch),
+            (tidx, ServingFront, tserving.ShardedEngine,
+             lambda ids, v: t_insert_batch(ids, v, device="cpu"))):
+        idx.insert(np.arange(N0), data)
+        front = front_cls(engine_cls(idx), deadline_s=0.0, max_bucket=4,
+                          k=3, publish_every=10**9)
+        answers.append(_sharded_isolation(front, idx, insert, queries,
+                                          new_ids))
+    for (je, jd), (te, td) in zip(*answers):
+        np.testing.assert_array_equal(je, te)
+        np.testing.assert_array_equal(jd, td)
+    assert_index_equal(jidx.states, tidx.states, where="sharded writer")
+    snap = tidx.snapshot_states()
+    live = tidx.search(queries, k=3)
+    held = tidx.search_state(snap, queries, k=3)
+    np.testing.assert_array_equal(live[0], held[0])
+    np.testing.assert_array_equal(live[2], held[2])
+
+
+def test_sharded_engine_clone_and_warmup_stay_on_the_rows():
+    """The engine's snapshot deep-copies every row (no shared storage),
+    ``warmup`` books nothing, and the engine reports the layout's first
+    device."""
+    from repro_torch.core import ShardedIndex as TShard
+
+    data = grid_data(64, DIM, 2)
+    idx = TShard(t_test_scale(DIM, 256, backend="torch"), ["cpu"] * 2,
+                 n_logical=4, max_external_id=MAX_EXT)
+    idx.insert(np.arange(64), data)
+    eng = tserving.ShardedEngine(idx)
+    snap = eng.clone(eng.live_state(), 3)
+    assert snap.seq == 3 and len(snap.state) == 4
+    for live, held in zip(idx.rows, snap.state):
+        assert live.graph.vectors.data_ptr() != held.graph.vectors.data_ptr()
+        assert live.ext2slot.data_ptr() != held.ext2slot.data_ptr()
+    front = ServingFront(eng, max_bucket=4)
+    front.warmup(update_buckets=[3])
+    assert front.metrics.n_updates == 0 and front.store.seq == 0
+    assert eng.device == torch.device("cpu") and idx.n_active == 64
