@@ -96,7 +96,28 @@ Phases, any failure exits non-zero:
      edge into an inactive slot; (e) ``ServingFront(ShardedEngine(...))``
      snapshot isolation and read-your-writes, publish ms against its
      bound, and ``repro_torch.launch.serve --shards 2`` plain and killed:
-     equal rows.
+     equal rows;
+  9. the recsys family and the two-tower retrieval path: (a) each arch at
+     its published widths (two-tower-retrieval, dlrm-rm2, din; dlrm-mlperf
+     with each Criteo-1TB table capped at 2^23 rows, 23.6 GB, since the
+     96.1 GB of whole tables do not fit one card) through
+     ``spec.make_step`` at ``serve_p99``, ``serve_bulk`` and
+     ``retrieval_cand`` (din's 10^6 candidates in four slices): ms per
+     step (warm, median of 5), peak memory, every score finite,
+     ``serve_p99`` and two-tower's ``retrieval_cand`` equal to the same
+     step on a CPU copy; (c) the twin of ``examples/distributed_serving.py``
+     over two-tower's 1,000,448 item embeddings (D = 256, ip): path A,
+     kernel 4 for 1,024 user vectors against its plain version, and path
+     B, ``ShardedIndex(high_recall(256, 2^18, "ip"), n_logical=4)`` fed
+     256 serial inserts, 1,792 streamed in 64-lane steps and 1,024
+     in-place deletes, queried under both partitions (equal to a host
+     merge of the per-row searches, no deleted id; Recall@10 against
+     kernel 4 before and after the deletes), kernels 1-4 launched; (b)
+     kernels 1-3 at D = 256 under ip against their plain versions (grid
+     data bitwise; the gathers timed cold, each call on a new tile of ids
+     whose rows the L2 does not hold, and warm).  The kernels' launches
+     on the recsys path are counted over paths A and B up to the end of
+     B's own searches, before its checks and the recall oracle.
 
 Prints the kernels line, the card's name and power limit, and last the
 ``{"ok": true, "device": ...}`` line; the full record goes to
@@ -225,13 +246,58 @@ def interleaved_ms(fns, reps):
     return [statistics.median(ts) for ts in times]
 
 
+# the ``names`` of each device_ms reading that came from spun CUDA events,
+# because the profiler's traces held no record of them
+DEVICE_MS_BY_EVENTS = []
+
+
+def spun_event_ms(fn, reps, setup=None):
+    """Device ms per ``fn(x)`` call from CUDA events around ``reps`` calls
+    queued behind a spin kernel, so that the card runs them back to back
+    and the host's launch time stays out (inputs from ``setup()`` made
+    beforehand).  The spin lasts twice a first, synchronised pass of the
+    same calls; if the host still took longer to launch them, the time
+    holds the card's waits and that is logged."""
+    import torch
+
+    xs = [setup() if setup else None for _ in range(reps)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x in xs:
+        fn(x)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    xs = [setup() if setup else None for _ in range(reps)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    # the spin counts clock cycles; at most 2 GHz, so it lasts >= 2 first_s
+    torch.cuda._sleep(int(4e9 * first_s) + 100_000)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for x in xs:
+        fn(x)
+    launch_ms = (time.perf_counter() - t0) * 1e3
+    ev[2].record()
+    torch.cuda.synchronize()
+    if launch_ms > ev[0].elapsed_time(ev[1]):
+        log(f"spun_event_ms: the launches took {launch_ms:.3f} ms, longer "
+            f"than the spin; the time holds the card's waits")
+    return ev[1].elapsed_time(ev[2]) / reps
+
+
 def device_ms(fn, reps, names, setup=None):
     """Mean device-only ms per ``fn(x)`` call of the CUDA kernels whose names
     contain one of ``names``, from a ``torch.profiler`` trace of ``reps``
-    calls (copies made by ``setup`` are not counted).  A trace that shows
-    none of those kernels is taken again, three traces in all (one trace of
-    a whole run came back without them, where the same trace alone did
-    not)."""
+    calls (copies made by ``setup`` are not counted): for each name, the
+    mean over the kernel records the trace holds, times its launches per
+    call, so that a trace holding fewer records than launches cannot make
+    a kernel read fast; a shortfall is logged.  A trace that shows none of
+    those kernels is taken again, three traces in all; when none of them
+    does (the card's traces at times hold only the host's side of a run),
+    the time is ``spun_event_ms`` of the same calls, which counts the
+    card's gaps between them too, and ``names`` goes into
+    ``DEVICE_MS_BY_EVENTS``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -245,16 +311,27 @@ def device_ms(fn, reps, names, setup=None):
             for x in xs:
                 fn(x)
             torch.cuda.synchronize()
-        us = 0.0
+        us, seen = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
         for ev in prof.key_averages():
-            if any(nm in ev.key for nm in names):
-                us += getattr(ev, "self_device_time_total", None) or \
-                    getattr(ev, "self_cuda_time_total", 0.0)
-        if us > 0:
-            return us / reps / 1e3
-    seen = sorted({ev.key[:60] for ev in prof.key_averages()})
-    raise PhaseError(f"the profiler saw no device time for {names} in "
-                     f"{traces} traces; the last one holds {seen}")
+            t = getattr(ev, "self_device_time_total", None) or \
+                getattr(ev, "self_cuda_time_total", 0.0)
+            for nm in names:
+                if nm in ev.key and t > 0:
+                    us[nm] += t
+                    seen[nm] += ev.count
+        if any(seen.values()):
+            short = {nm: c for nm, c in seen.items() if 0 < c < reps}
+            if short:
+                log(f"device_ms: the trace holds {short} records of "
+                    f"{reps} calls")
+            return sum(us[nm] / c * max(1, round(c / reps))
+                       for nm, c in seen.items() if c) / 1e3
+    held = sorted({ev.key[:60] for ev in prof.key_averages()})
+    log(f"device_ms: the profiler saw no device time for {names} in "
+        f"{traces} traces (the last one holds {held}); timed by spun CUDA "
+        f"events instead")
+    DEVICE_MS_BY_EVENTS.append(tuple(names))
+    return spun_event_ms(fn, reps, setup)
 
 
 def gather_host_split(ids, q, vec, norms, reps=2000):
@@ -1879,6 +1956,8 @@ def state_bytes(state):
 
     if isinstance(state, torch.Tensor):
         return state.numel() * state.element_size()
+    if isinstance(state, dict):
+        state = state.values()
     return 0 if state is None else sum(state_bytes(x) for x in state)
 
 
@@ -2624,6 +2703,524 @@ def sharded_path(seed, n_cap=1 << 18, n_logical=4):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the recsys family and the two-tower retrieval path on the card
+# ---------------------------------------------------------------------------
+
+# the full-width archs, in the order phase 9 runs them (each freed before
+# the next); dlrm-mlperf's 26 Criteo-1TB tables (96.1 GB padded) do not fit
+# one 80 GB card, so each keeps its width and at most 2^23 rows
+RECSYS_ARCHS = ("two-tower-retrieval", "dlrm-rm2", "din", "dlrm-mlperf")
+MLPERF_ROW_CAP = 1 << 23
+# DIN scores 10^6 retrieval candidates in slices of this many targets: one
+# pass would need ~77 GB of activations; each candidate is scored alone, so
+# the slices concatenated are the one pass
+DIN_SLICE = 262_144
+RECSYS_SHAPES = ("serve_p99", "serve_bulk", "retrieval_cand")
+
+
+def recsys_spec(name):
+    """The registered full-width spec; ``dlrm-mlperf`` with each table
+    capped at ``MLPERF_ROW_CAP`` rows."""
+    from repro_torch.configs import get_arch
+
+    spec = get_arch(name)
+    if name == "dlrm-mlperf":
+        spec = dataclasses.replace(spec, cfg=dataclasses.replace(
+            spec.cfg, vocab_sizes=tuple(min(v, MLPERF_ROW_CAP)
+                                        for v in spec.cfg.vocab_sizes)))
+    return spec
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def untied(vals, rtol=2e-5):
+    """(B, k) bool from (B, k + 1) sorted values: True where value j is
+    not within tolerance of value j - 1 or j + 1 (its id must then match
+    exactly).  The absolute floor is ``rtol`` of the row's largest
+    magnitude."""
+    import torch
+
+    v = vals.double()
+    atol = rtol * v.abs().amax(1, keepdim=True)
+    near = (v[:, 1:] - v[:, :-1]).abs() <= atol + rtol * v[:, 1:].abs()
+    k = vals.shape[1] - 1
+    left = torch.zeros_like(near[:, :k])
+    left[:, 1:] = near[:, :k - 1]
+    return ~(left | near[:, :k])
+
+
+def ids_agree(ids_a, ids_b, vals_ext):
+    """Ids equal wherever ``vals_ext`` (the plain side's values with one
+    extra column) shows no near-tie."""
+    return bool(((ids_a.cpu() == ids_b.cpu())
+                 | ~untied(vals_ext.cpu())).all())
+
+
+def recsys_arch(spec, dev, seed):
+    """9a: one arch at full width: ``serve_p99``, ``serve_bulk`` and
+    ``retrieval_cand`` through ``make_step``, ms per step (CUDA events,
+    warm, median of 5), every score finite, ``serve_p99`` (and two-tower's
+    ``retrieval_cand``) against the same step on a CPU copy of the state
+    and inputs.  Returns the record and the state (the two-tower's feeds
+    the twin)."""
+    import torch
+
+    name = spec.name
+    shapes = spec.shapes()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # the retrieval state holds the params (and two-tower's cand_embs)
+    state = spec.init_state(shapes["retrieval_cand"], dev, gen)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "state_bytes": state_bytes(state)}
+    cpu_state = None
+    for sname in RECSYS_SHAPES:
+        shape = shapes[sname]
+        inputs = spec.make_inputs(shape, dev, gen)
+        step = spec.make_step(shape)
+        if name == "din" and sname == "retrieval_cand":
+            def run(step=step, inputs=inputs):
+                tgt = inputs["target"]
+                return {"scores": torch.cat([
+                    step(state, {**inputs, "target": tgt[lo:lo + DIN_SLICE]}
+                         )[1]["scores"]
+                    for lo in range(0, tgt.shape[0], DIN_SLICE)])}
+        else:
+            def run(step=step, inputs=inputs):
+                return step(state, inputs)[1]
+        res = run()
+        fin = all(bool(torch.isfinite(v.float()).all()) for v in res.values())
+        check(fin, f"phase 9a: {name} {sname} scores not finite")
+        ms = interleaved_ms([run], 5)[0]
+        flops = spec.model_flops(shape)
+        row = {"dims": dict(shape.dims), "ms": ms, "model_flops": flops,
+               "tflop_per_s": flops / ms / 1e9,
+               "out_shapes": {k: list(v.shape) for k, v in res.items()}}
+        if sname == "serve_p99" or (sname == "retrieval_cand"
+                                    and "ids" in res):
+            if cpu_state is None:
+                t1 = time.perf_counter()
+                cpu_state = tree_to(state, "cpu")
+                out["cpu_copy_s"] = time.perf_counter() - t1
+            cpu_in = tree_to(inputs, "cpu")
+            ref = step(cpu_state, cpu_in)[1]
+            for key, v in ref.items():
+                got = res[key].cpu()
+                if key == "ids":
+                    from repro_torch.models import recsys as rec
+
+                    ext = rec.two_tower_score_candidates(
+                        cpu_state["params"], spec.cfg, cpu_in["user_ids"],
+                        cpu_state["cand_embs"], k=v.shape[1] + 1)[0]
+                    check(ids_agree(got, v, ext),
+                          f"phase 9a: {name} {sname} ids differ from the "
+                          f"CPU step away from ties")
+                    continue
+                diff = (got - v).abs()
+                err = float(diff.max())
+                nz = v != 0
+                rel = float((diff[nz] / v[nz].abs()).max()) if nz.any() \
+                    else 0.0
+                # two-tower's scores are inner products of ~1e-4: the
+                # absolute floor is scaled to the output where it is below
+                # 1, so that a TF32-sized error shows
+                atol = 1e-5 * min(1.0, float(v.abs().max()))
+                check(torch.allclose(got, v, rtol=2e-5, atol=atol),
+                      f"phase 9a: {name} {sname} {key} differs from the "
+                      f"CPU step (max abs err {err}, max rel err {rel})")
+                row.update(cpu_max_abs_err=err, cpu_max_rel_err=rel,
+                           cpu_atol=atol)
+            row["cpu_agrees"] = True
+        out[sname] = row
+        log(f"9a {name} {sname} {shape.dims}: {ms:.3f} ms a step, "
+            f"{row['tflop_per_s']:.2f} TFLOP/s" +
+            (", equal to the CPU step" if row.get("cpu_agrees") else ""))
+        del res, inputs
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"9a {name}: state {out['state_bytes']} bytes, peak "
+        f"{out['peak_mem_bytes']} bytes")
+    return out, state
+
+
+def gather_parity_ip(name, kern, plain, lib, tiles, grid, row_bytes, nq):
+    """Kernel 1 or 2 under ``ip`` against its plain version on ``tiles[0]``
+    (``kern``, ``plain`` and ``lib`` take a tile's index): bitwise on grid
+    data, rtol 1e-5 on Gaussian data, where also its times.  Timed cold,
+    each call on the next tile, whose rows the L2 does not hold (the tiles'
+    rows are far more than its 50 MB), and the kernel also warm, on one
+    tile again and again (kernel 1's 30 MB of rows then stay in the L2)."""
+    import itertools
+
+    import torch
+
+    a, p = kern(0), plain(0)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(p)
+    check(torch.equal(torch.isfinite(a), fin), f"9b {name}: inf mask")
+    err = float((a[fin] - p[fin]).abs().max()) if fin.any() else 0.0
+    if grid:
+        check(torch.equal(a, p), f"9b {name}: grid data not bitwise")
+        return {"max_abs_err": err}
+    check(torch.allclose(a[fin], p[fin], rtol=1e-5, atol=1e-4),
+          f"9b {name}: gaussian max err {err}")
+    d = row_bytes // 4
+    nvalid = sum(int((t >= 0).sum()) for t in tiles) / len(tiles)
+    by = nvalid * row_bytes + tiles[0].numel() * 8 + nq * d * 4
+    bms, bby = bound_ms(by, nvalid * 2 * d)
+    order = itertools.cycle(range(len(tiles)))
+
+    def nxt():
+        return next(order)
+
+    names = DEVICE_KERNELS[name]
+    return {"max_abs_err": err, "ms": cuda_ms(kern, 50, setup=nxt),
+            "timing": f"cold: each call on the next of {len(tiles)} tiles",
+            "device_ms": device_ms(kern, 50, names, setup=nxt),
+            "device_ms_warm": device_ms(lambda _: kern(0), 50, names),
+            "plain_ms": cuda_ms(plain, 20, setup=nxt),
+            "library_ms": cuda_ms(lib, 20, setup=nxt),
+            "library_call": "torch.bmm(vectors[ids], q)",
+            "bound_ms": bms, "bound_by": bby}
+
+
+def recsys_kernels_ip(seed, n, d=256, r=64, l=128, b=512, h=4):
+    """9b: kernels 1, 2 and 3 at D = 256 under ``ip`` against their plain
+    versions, on grid and Gaussian tables of the catalogue's size: one
+    (B, K) = (512, 64) tile, one serial K = 64 gather (the launcher bound
+    once per search), four H = 4 super-steps from a fresh carry, the last
+    one timed from its mid-search carry (l = 128, R = 64)."""
+    from functools import partial
+
+    import torch
+
+    from repro_torch.core import bitset
+    from repro_torch.kernels import beam_hop as bh
+    from repro_torch.kernels import gather_distance as gd
+
+    gen = torch.Generator(device="cuda")
+    rows = {}
+    for data in ("grid", "gauss"):
+        grid = data == "grid"
+        gen.manual_seed(seed + (40 if grid else 41))
+        vec = make_table(n, d, grid, gen)
+        qi = torch.randint(0, n, (b,), generator=gen, device="cuda")
+        noise = (torch.randint(-2, 3, (b, d), generator=gen, device="cuda")
+                 .to(torch.float32) / 16 if grid
+                 else make_table(b, d, grid, gen) / 16)
+        qb = (vec[qi] + noise).contiguous()
+        ids = torch.randint(0, n, (b, r), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        ids[torch.rand((b, r), generator=gen, device="cuda") < 0.1] = -1
+        # the timed tiles: ``ids`` and 15 more of its kind, from a generator
+        # of their own (kernel 3's data stays as it was)
+        tgen = torch.Generator(device="cuda").manual_seed(seed + 42)
+        tiles = [ids] + [
+            torch.where(torch.rand((b, r), generator=tgen, device="cuda")
+                        < 0.1, -1, torch.randint(
+                            0, n, (b, r), generator=tgen, device="cuda",
+                            dtype=torch.int32))
+            for _ in range(0 if grid else 15)]
+        i2 = [t.clamp(min=0).long() for t in tiles]
+        res = {}
+        res["gather_distance_batched"] = gather_parity_ip(
+            "gather_distance_batched",
+            lambda j: gd.gather_distance_batched_cuda(tiles[j], qb, vec,
+                                                      None, metric="ip"),
+            lambda j: gd.gather_distance_batched_plain(tiles[j], qb, vec,
+                                                       None, metric="ip"),
+            lambda j: torch.bmm(vec[i2[j]], qb[:, :, None]),
+            tiles, grid, 4 * d, b)
+        # the serial gather over one row of ids, the next row of the next
+        # tile each call
+        rows1 = [t[i] for i in range(b) for t in tiles]
+        bound = gd.BoundGather(qb[0], vec, None, metric="ip")
+        res["gather_distance"] = gather_parity_ip(
+            "gather_distance", lambda j: bound(rows1[j]),
+            lambda j: gd.gather_distance_plain(rows1[j], qb[0], vec, None,
+                                               metric="ip"),
+            lambda j: torch.bmm(vec[i2[j % len(tiles)][j // len(tiles)]]
+                                [None], qb[:1, :, None]),
+            rows1, grid, 4 * d, 1)
+        adj = torch.randint(0, n, (n, r), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        adj[torch.rand((n, r), generator=gen, device="cuda") < 0.15] = -1
+        nav = torch.rand((n,), generator=gen, device="cuda") < 0.98
+        ret = nav & (torch.rand((n,), generator=gen, device="cuda") < 0.95)
+        nav_w, ret_w = bitset.pack_bits(nav), bitset.pack_bits(ret)
+        norms = (vec * vec).sum(1)
+        start = int(torch.nonzero(ret)[0])
+        lanes_valid = torch.arange(b, device="cuda") % 17 != 5
+        starts = torch.where(lanes_valid, start, -1).to(torch.int32)
+        d0 = gd.gather_distance_batched_plain(starts[:, None], qb, vec,
+                                              norms, metric="ip")[:, 0]
+        res["beam_hop_fused"] = hop_parity(
+            "beam_hop_fused", partial(bh.beam_hop_fused_plain, metric="ip"),
+            partial(bh.beam_hop_fused_cuda, metric="ip"),
+            lambda q, c: bh.BoundBeamHop(q, c, adj, vec, norms, nav_w, ret_w,
+                                         metric="ip", h=h),
+            qb, (adj, vec, norms, nav_w, ret_w), starts, d0, grid, n, l,
+            l + 64, h, 4 * d, steps=4)
+        del vec, adj, norms
+        torch.cuda.empty_cache()
+        rows[data] = res
+        log(f"9b {data}: kernels 1-3 at D = {d} under ip equal to their "
+            f"plain versions: " + json.dumps(
+                {k: v.get("device_ms", v["max_abs_err"])
+                 for k, v in res.items()}))
+    return rows
+
+
+def path_a_parity(users, cand, served, k=10):
+    """Path A's answer against the plain version on the same tensors: ids
+    equal away from near-ties, distances to rtol 1e-5; its times and
+    bound (2 N B D flops)."""
+    import torch
+
+    from repro_torch.kernels import topk_score as tk
+
+    norms = (cand * cand).sum(1)
+    kv, ki = served
+    pv, pi = tk.topk_score_plain(users, cand, norms, None, k=k + 1,
+                                 metric="ip")
+    torch.cuda.synchronize()
+    err = float((kv - pv[:, :k]).abs().max())
+    # the tower's outputs are small (inner products ~1e-4): the absolute
+    # floor is scaled to them
+    scale = float(pv[:, :k].abs().max())
+    check(torch.allclose(kv, pv[:, :k], rtol=1e-5, atol=1e-5 * scale),
+          f"9c path A: distances differ from the plain version ({err})")
+    check(ids_agree(ki, pi[:, :k], pv),
+          "9c path A: ids differ from the plain version away from ties")
+    b, d = users.shape
+    n = cand.shape[0]
+    by = n * d * 4 + b * d * 4 + b * k * 8
+    bms, bby = bound_ms(by, 2.0 * n * b * d)
+    ms = cuda_ms(lambda _: tk.topk_score_cuda(users, cand, norms, None, k=k,
+                                              metric="ip"), 5)
+    dms = device_ms(lambda _: tk.topk_score_cuda(users, cand, norms, None,
+                                                 k=k, metric="ip"), 5,
+                    DEVICE_KERNELS["topk_score"])
+    pms = cuda_ms(lambda _: tk.topk_score_plain(users, cand, norms, None, k=k,
+                                                metric="ip"), 2)
+    lms = cuda_ms(lambda _: torch.topk(users @ cand.T, k), 3)
+    return {"queries": b, "rows": n, "dim": d, "k": k, "max_abs_err": err,
+            "ms": ms, "device_ms": dms, "plain_ms": pms, "library_ms": lms,
+            "library_call": "torch.topk(users @ cand.T, k)",
+            "bound_ms": bms, "bound_by": bby}
+
+
+def path_b(cand, users, dev, n_boot=256, n_stream=1792, lanes=64, qb=256,
+           n_cap=1 << 18, n_logical=4, k=10):
+    """9c path B: ``ShardedIndex(high_recall(D, 2^18, "ip"), [dev],
+    n_logical=4)`` over the first ``n_boot + n_stream`` catalogue items
+    (external id = item id): ``n_boot`` serial inserts through ``insert``
+    (kernel 2), the rest through ``update_stream`` in ``lanes``-lane steps
+    with ``sequential=False``, every second item deleted in place, the
+    user vectors queried at B = ``qb`` under both partitions.  Gates: both
+    partitions equal to a host merge of the per-row searches, no deleted
+    id.  Returns the record (with the launch counts read before those
+    checks) and, before and after the deletes, (ids, live ids) for the
+    recall oracle."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import high_recall
+    from repro_torch.core import ShardedIndex, insert_batch, search_index
+    from repro_torch.kernels import ops
+
+    n_items = n_boot + n_stream
+    embs = cand[:n_items].cpu().numpy()
+    cfg = high_recall(cand.shape[1], n_cap, metric="ip")
+    idx = ShardedIndex(cfg, [dev], n_logical=n_logical)
+    out = {"n_logical": n_logical, "n_cap_per_row": n_cap,
+           "dim": cfg.dim, "r": cfg.r, "l_search": cfg.l_search}
+    idx.synchronize()
+    t0 = time.perf_counter()
+    idx.insert(np.arange(n_boot), embs[:n_boot])
+    idx.synchronize()
+    out["serial_insert_s"] = time.perf_counter() - t0
+    out["ms_per_serial_insert"] = out["serial_insert_s"] / n_boot * 1e3
+    # the stream runs the relaxed-visibility batched phases
+    idx.sequential = False
+    steps = [insert_batch(np.arange(lo, lo + lanes), embs[lo:lo + lanes],
+                          device="cpu")
+             for lo in range(n_boot, n_items, lanes)]
+    t0 = time.perf_counter()
+    res = idx.update_stream(steps, max_t=8)
+    idx.synchronize()
+    dt = time.perf_counter() - t0
+    n_ok = sum(int(r.ok.sum()) for r in res)
+    check(n_ok == n_stream and idx.n_active == n_items,
+          f"phase 9c: the stream applied {n_ok} of {n_stream} lanes")
+    out.update(stream_lanes=n_stream, stream_steps=len(steps), stream_s=dt,
+               lanes_per_s=n_stream / dt)
+    q = users.cpu().numpy()
+    before = np.concatenate([idx.search(q[lo:lo + qb], k=k,
+                                        l=cfg.l_search)[0]
+                             for lo in range(0, len(q), qb)])
+    drop = np.arange(0, n_items, 2)
+    t0 = time.perf_counter()
+    idx.delete(drop)
+    idx.synchronize()
+    out["delete_s"] = time.perf_counter() - t0
+    out["deletes"] = len(drop)
+    out["deletes_per_s"] = len(drop) / out["delete_s"]
+    check(idx.n_active == n_items - len(drop),
+          f"phase 9c: {idx.n_active} live after the deletes")
+    answers = {}
+    for part in (None, "queries"):
+        idx.search(q[:qb], k=k, l=cfg.l_search, partition=part)
+        idx.synchronize()
+        t0 = time.perf_counter()
+        got = [idx.search(q[lo:lo + qb], k=k, l=cfg.l_search, partition=part)
+               for lo in range(0, len(q), qb)]
+        idx.synchronize()
+        dt = time.perf_counter() - t0
+        key = part or "replicate"
+        answers[key] = tuple(np.concatenate([g[i] for g in got])
+                             for i in range(3))
+        out[f"qps_{key}"] = len(q) / dt
+    # the path's own launches end here: the checks below search again
+    out["launches"] = ops.launch_counts()
+    check(all(np.array_equal(a, b) for a, b in
+              zip(answers["replicate"], answers["queries"])),
+          "phase 9c: the two partitions differ")
+    per_row = []
+    for row in idx.rows:
+        parts = [search_index(row, cfg, users[lo:lo + qb], k=k,
+                              l=cfg.l_search) for lo in range(0, len(q), qb)]
+        per_row.append(tuple(np.concatenate([p[i].cpu().numpy()
+                                             for p in parts])
+                             for i in (0, 1)))
+    merged = host_merge(per_row, k)
+    check(all(np.array_equal(a, b) for a, b in
+              zip(merged, answers["replicate"])),
+          "phase 9c: the sharded answers differ from a host merge of the "
+          "per-row searches")
+    ids = answers["replicate"][0]
+    check(not np.isin(ids, drop).any(), "phase 9c: a deleted id came back")
+    live = np.setdiff1d(np.arange(n_items), drop)
+    log(f"9c path B: {n_boot} serial inserts "
+        f"({out['ms_per_serial_insert']:.1f} ms each), {n_stream} streamed "
+        f"({out['lanes_per_s']:.1f} lanes/s), {len(drop)} deleted in "
+        f"{out['delete_s']:.1f} s; QPS {out['qps_replicate']:.0f} / "
+        f"{out['qps_queries']:.0f}; partitions equal to the host merge, "
+        f"no deleted id")
+    del idx
+    torch.cuda.empty_cache()
+    return out, {"before": (before, np.arange(n_items)),
+                 "after": (ids, live)}
+
+
+def recall_vs_exact(ids, users, cand, live, k=10):
+    """Recall@10 of path B's ids against kernel 4 over the live items
+    (+inf bias on every other catalogue row)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    bias = torch.full((cand.shape[0],), float("inf"), device=cand.device)
+    bias[torch.from_numpy(live).to(cand.device)] = 0.0
+    _, exact = ops.topk_search(users, cand, k=k, metric="ip", bias=bias)
+    exact = exact.cpu().numpy()
+    hits = sum(len(set(a.tolist()) & set(b.tolist()))
+               for a, b in zip(ids, exact))
+    return hits / (k * len(ids))
+
+
+def twin_users(spec, state, seed, n_users=1024):
+    """The twin's queries: the user tower over ``n_users`` user ids drawn
+    from a generator seeded ``seed + 43``."""
+    import torch
+
+    from repro_torch.models import recsys as rec
+
+    dev = state["cand_embs"].device
+    gen = torch.Generator(device=dev).manual_seed(seed + 43)
+    user_ids = torch.randint(0, spec.cfg.user_vocab, (n_users,),
+                             generator=gen, device=dev, dtype=torch.int32)
+    with torch.no_grad():
+        return rec._mlp(state["params"]["user_tower"],
+                        rec.take_rows(state["params"]["user_emb"],
+                                      user_ids)).contiguous()
+
+
+def recsys_path(seed, n_users=1024):
+    """Phase 9: the recsys archs at full width (9a), kernels 1-3 at D = 256
+    under ``ip`` (9b), and the twin of ``examples/distributed_serving.py``
+    over two-tower-retrieval's item tower (9c): path A (kernel 4 over the
+    whole catalogue) and path B (the sharded index), with the kernels'
+    launches counted over the two paths."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda", 0)
+    out = {"archs": {}}
+    tt = RECSYS_ARCHS[0]
+    t0 = time.perf_counter()
+    spec = recsys_spec(tt)
+    out["archs"][tt], state = recsys_arch(spec, dev, seed)
+    out["archs_s"] = {tt: time.perf_counter() - t0}
+    cand = state["cand_embs"]
+    users = twin_users(spec, state, seed, n_users)
+    del state
+    torch.cuda.empty_cache()
+
+    # the twin's two paths, with the kernels' launches counted from here to
+    # the end of path B's own searches (its checks and the recall oracle
+    # come after the count is read)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    # path A: kernel 4 over the whole catalogue
+    served = ops.topk_search(users, cand, k=10, metric="ip")
+    twin, answers = path_b(cand, users, dev)
+    out["launches"] = twin.pop("launches")
+    for key, (ids, live) in answers.items():
+        twin[f"recall_at_10_{key}"] = recall_vs_exact(ids, users, cand,
+                                                      live)
+    twin["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    twin["s"] = time.perf_counter() - t0
+    log(f"9c: Recall@10 against kernel 4 over the live items "
+        f"{twin['recall_at_10_before']:.4f} before the deletes, "
+        f"{twin['recall_at_10_after']:.4f} after; launches "
+        f"{out['launches']}")
+    for name in F32_PATH:
+        check(out["launches"][name] > 0,
+              f"kernel {name} never launched on the recsys path")
+    t0 = time.perf_counter()
+    out["path_a"] = path_a_parity(users, cand, served)
+    out["path_b"] = twin
+    log(f"9c path A: kernel 4 (ip, D = {cand.shape[1]}, "
+        f"{cand.shape[0]} rows, B = {n_users}) {out['path_a']['ms']:.3f} ms, "
+        f"device {out['path_a']['device_ms']:.3f} ms, bound "
+        f"{out['path_a']['bound_ms']:.3f} ms; equal to the plain version")
+    n_cat = cand.shape[0]
+    del cand, users, served
+    torch.cuda.empty_cache()
+    out["kernels"] = recsys_kernels_ip(seed, n_cat)
+    out["kernels"]["gauss"]["topk_score"] = out["path_a"]
+    out["parity_s"] = time.perf_counter() - t0
+    for name in RECSYS_ARCHS[1:]:
+        t0 = time.perf_counter()
+        out["archs"][name], state = recsys_arch(recsys_spec(name), dev,
+                                                seed)
+        del state
+        torch.cuda.empty_cache()
+        out["archs_s"][name] = time.perf_counter() - t0
+    return out
+
+
 def compare_runs(key, runs, kernels):
     """The cuda and torch runs of one stream: every state leaf and result
     identical, and ``kernels`` launched by the cuda run."""
@@ -2740,6 +3337,10 @@ def main(argv=None):
     record["sharded"] = sharded_path(args.seed)
     record["sharded"]["wall_s"] = time.perf_counter() - t0
     log(f"phase 8: {record['sharded']['wall_s']:.1f} s")
+    t0 = time.perf_counter()
+    record["recsys"] = recsys_path(args.seed)
+    record["recsys"]["wall_s"] = time.perf_counter() - t0
+    log(f"phase 9: {record['recsys']['wall_s']:.1f} s")
     record["total_s"] = time.perf_counter() - smoke_t0
     log(f"smoke: {record['total_s']:.1f} s")
 
@@ -2748,6 +3349,7 @@ def main(argv=None):
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
 
     gauss, grid = record["kernels"]["gauss"], record["kernels"]["grid"]
+    ip = record["recsys"]["kernels"]["gauss"]
     rows = []
     for name in TPU_SITES:
         g = gauss.get(name, {})
@@ -2761,13 +3363,23 @@ def main(argv=None):
             "launches_by_path": {p: record[p]["launches"].get(name, 0)
                                  for p in ("main", "quant", "fresh", "local",
                                            "hnsw", "segments", "serving",
-                                           "sharded")},
+                                           "sharded", "recsys")},
             "max_abs_err": g.get("max_abs_err"),
             "grid_bitwise": name in grid,
             "ms": g.get("ms"), "public_ms": g.get("public_ms"),
             "device_ms": g.get("device_ms"),
             "plain_ms": g.get("plain_ms"), "bound_ms": g.get("bound_ms"),
             "bound_by": g.get("bound_by"), "library_ms": g.get("library_ms"),
+            # readings of this kernel's device_ms (here, in ip_d256 or in
+            # the path records) timed by spun CUDA events, not the profiler
+            # (the two beam hops share one kernel name, so one count)
+            "device_ms_by_events": DEVICE_MS_BY_EVENTS.count(
+                DEVICE_KERNELS[name]),
+            # the same kernel at the recsys path's D = 256 under ip
+            "ip_d256": {key: ip[name].get(key) for key in
+                        ("max_abs_err", "ms", "device_ms", "device_ms_warm",
+                         "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            if name in ip else None,
         })
     print(json.dumps({"kernels": rows}))
     print(", ".join(smi))

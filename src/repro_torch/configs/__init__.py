@@ -1,3 +1,15 @@
 from .ann import high_recall, low_recall, test_scale
+from .base import ArchSpec, ShapeSpec, pad_to
+from .registry import all_archs, get_arch, register
 
-__all__ = ["high_recall", "low_recall", "test_scale"]
+# importing an arch module registers its SPEC; the LM and GNN archs wait
+# for their slices (ROADMAP slice 15)
+from . import (  # noqa: F401
+    din,
+    dlrm_mlperf,
+    dlrm_rm2,
+    two_tower_retrieval,
+)
+
+__all__ = ["ArchSpec", "ShapeSpec", "all_archs", "get_arch", "high_recall",
+           "low_recall", "pad_to", "register", "test_scale"]

@@ -15,6 +15,14 @@ An HNSW hierarchy (``core/hnsw.py::HNSWState``) travels as ``{field:
 array}`` over its fields in order: ``hnsw_state_from_numpy`` /
 ``hnsw_state_to_numpy`` (a reference ``HNSWState`` becomes that dict with
 ``np.asarray`` on each field).
+
+A recsys parameter tree (``models/recsys.py``: dicts, and lists for an
+MLP's ``w`` and ``b``) travels leaf for leaf in the reference's layout,
+weights ``(in, out)`` as they are (the port uses no ``nn.Linear``, so
+nothing is transposed): ``params_from_numpy`` / ``params_to_numpy``, and
+``module_from_numpy`` loads a tree into ``DLRM`` / ``DIN`` / ``TwoTower``.
+A reference tree of JAX arrays goes in as it is (each leaf through
+``np.asarray``).
 """
 from __future__ import annotations
 
@@ -83,6 +91,32 @@ def hnsw_state_from_numpy(d: dict, device=None):
 
 def hnsw_state_to_numpy(st) -> dict:
     return {f: v.cpu().numpy() for f, v in st._asdict().items()}
+
+
+def params_from_numpy(tree, device=None):
+    """A parameter tree of numpy (or JAX) arrays -> the same tree of
+    tensors on ``device`` (default: the card)."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(v, dev) for v in tree]
+    return _tensor(tree, dev)
+
+
+def params_to_numpy(tree):
+    """A parameter tree of tensors -> the same tree of numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_numpy(v) for v in tree]
+    return tree.detach().cpu().numpy()
+
+
+def module_from_numpy(cls, cfg, tree, device=None):
+    """``cls(cfg, params)`` (``models/recsys.py``'s ``DLRM``, ``DIN`` or
+    ``TwoTower``) over ``params_from_numpy(tree, device)``."""
+    return cls(cfg, params_from_numpy(tree, device))
 
 
 def words_from_numpy(words, device=None) -> torch.Tensor:

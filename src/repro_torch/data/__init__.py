@@ -1,3 +1,3 @@
-from .pipeline import VectorStream
+from .pipeline import ClickStream, TokenStream, VectorStream
 
-__all__ = ["VectorStream"]
+__all__ = ["ClickStream", "TokenStream", "VectorStream"]

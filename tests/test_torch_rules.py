@@ -1,10 +1,11 @@
-"""Rules of the port: it imports neither JAX nor the JAX package, it imports
-without JAX installed, ``auto`` resolves by the state's device, the ``cuda``
-engine refuses CPU tensors (the int8 tier's kernels and the bound launchers
-of the serial and the batched search too), the quantized batched search
-takes its int8 distances from the launcher bound once per search, the int8
-gather's launch shape serves every id once, and the quantized state has the
-reference's leaves."""
+"""Rules of the port: it (with its ``examples/*_torch.py`` twins and
+``scripts/*_torch.py``) imports neither JAX nor the JAX package, it
+imports without JAX installed, ``auto`` resolves by the state's device,
+the ``cuda`` engine refuses CPU tensors (the int8 tier's kernels and the
+bound launchers of the serial and the batched search too), the quantized
+batched search takes its int8 distances from the launcher bound once per
+search, the int8 gather's launch shape serves every id once, and the
+quantized state has the reference's leaves."""
 import ast
 import subprocess
 import sys
@@ -22,7 +23,8 @@ from repro_torch.kernels import (beam_hop, gather_distance, quant_gather,
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    sorted((ROOT / "examples").glob("*_torch.py")) + \
+    sorted((ROOT / "scripts").glob("*_torch.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _forbidden(name: str) -> bool:
