@@ -59,7 +59,7 @@ Phases, any failure exits non-zero:
      the trigger op by op, for ip, fresh and local: every leaf and result
      row identical, a mid-segment trigger for ip and fresh, nothing
      pending under local; (b) ``run_runbook(segmented=True)`` against the
-     per-op ``run_runbook`` (ip, serial updates, a 256-point sliding
+     per-op ``run_runbook`` (ip, serial updates, a 160-point sliding
      window): the same evals, counters and final state; (c)
      ``run_segments_supervised`` on (a)'s ip plan with a failure and a
      kill inside a save, bitwise at (a)'s end, and a
@@ -117,7 +117,26 @@ Phases, any failure exits non-zero:
      data bitwise; the gathers timed cold, each call on a new tile of ids
      whose rows the L2 does not hold, and warm).  The kernels' launches
      on the recsys path are counted over paths A and B up to the end of
-     B's own searches, before its checks and the recall oracle.
+     B's own searches, before its checks and the recall oracle;
+ 10. training (``repro_torch.training`` through ``spec.make_step`` on
+     ``train`` shapes): (a) the four recsys archs' ``train_batch`` steps
+     (B = 65,536) at their published widths (dlrm-mlperf's tables capped at
+     2^22 rows: parameters, dense gradients and AdamW's moments hold four
+     copies), (b) gcn-cora's four shapes at full width (``minibatch_lg``'s
+     hops from the port's sampler on the card, every sampled id checked as
+     a neighbour of its parent in the CSR it was drawn from): per cell the
+     first step, then 5 steps on the same batch, ms per step (CUDA events,
+     warm, median of 5), TFLOP/s of ``model_flops``, peak memory, the loss
+     finite and lower after them, then 3 steps under ``torch.profiler``
+     for the device time by kernel group and the idle share; after the
+     first step, 4,096 embedding rows per table that no id read equal
+     ``p - lr * (wd * p)`` bitwise;
+     no kernel of ``csrc`` launched; every reduced train step equal to its
+     CPU copy over two steps (the tolerance of
+     ``repro_torch.training.tolerance``, as in the CPU tests); (c)
+     ``adamw_update`` (float32 and bfloat16 moments) and
+     ``compressed_psum`` over four per-device gradients on the card against
+     the CPU.
 
 Prints the kernels line, the card's name and power limit, and last the
 ``{"ok": true, "device": ...}`` line; the full record goes to
@@ -1753,7 +1772,7 @@ def segments_agree(cfg, start, data, live, n_ops=16, lanes=32, max_t=8):
     return out, plan, finals["ip"], launches
 
 
-def segmented_runbook_agrees(seed, n=256, t_max=16, eval_every=4):
+def segmented_runbook_agrees(seed, n=160, t_max=16, eval_every=4):
     """6b: ``run_runbook(segmented=True)`` against the per-op
     ``run_runbook`` on ``StreamingIndex(mode="ip", batch_updates=False)``:
     the same evals, counters (seconds aside) and final state."""
@@ -3221,6 +3240,388 @@ def recsys_path(seed, n_users=1024):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training — the recsys train steps and the GCN family on the card
+# ---------------------------------------------------------------------------
+
+# the recsys archs' train_batch steps, in the order phase 10 runs them (each
+# freed before the next); parameters, dense gradients and AdamW's two
+# moments hold four copies of the tables, so dlrm-mlperf's tables are capped
+# at 2^22 rows here (51.3 GB in all; 2^23 would need 94.2 GB)
+TRAIN_ARCHS = ("two-tower-retrieval", "dlrm-rm2", "din", "dlrm-mlperf")
+MLPERF_TRAIN_ROW_CAP = 1 << 22
+GCN_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
+# untouched embedding rows checked per table after the first step
+UNTOUCHED_ROWS = 4096
+# train steps timed per arch or shape after the first (warm, median)
+TRAIN_REPS = 5
+# steps traced per arch or shape after those, for the device split
+PROFILE_STEPS = 3
+# kernel name fragments of each group of a train step's device time; a
+# kernel matching none is elementwise
+KERNEL_GROUPS = (
+    ("gemm", ("gemm", "cutlass", "sm90_", "ampere_", "cublas")),
+    ("sort_index", ("sort", "radix", "index", "scatter", "gather",
+                    "embedding", "unique", "cumsum", "scan")),
+    ("reduce", ("reduce", "softmax", "logsumexp", "norm")))
+
+
+def train_spec(name):
+    """The registered full-width spec; ``dlrm-mlperf`` with each table
+    capped at ``MLPERF_TRAIN_ROW_CAP`` rows."""
+    from repro_torch.configs import get_arch
+
+    spec = get_arch(name)
+    if name == "dlrm-mlperf":
+        spec = dataclasses.replace(spec, cfg=dataclasses.replace(
+            spec.cfg, vocab_sizes=tuple(min(v, MLPERF_TRAIN_ROW_CAP)
+                                        for v in spec.cfg.vocab_sizes)))
+    return spec
+
+
+def embedding_lookups(spec, params, inputs):
+    """(table, ids it reads) for every embedding table of a recsys step."""
+    import torch
+
+    if spec.family != "recsys":
+        return []
+    if "tables" in params:
+        return [(params["tables"][f"t{i}"], inputs["sparse"][:, i])
+                for i in range(len(params["tables"]))]
+    if "items" in params:
+        return [(params["items"], torch.cat([inputs["hist"].reshape(-1),
+                                             inputs["target"]]))]
+    return [(params["user_emb"], inputs["user_ids"]),
+            (params["item_emb"], inputs["item_ids"])]
+
+
+def untouched_rows(lookups, gen):
+    """Per table, up to ``UNTOUCHED_ROWS`` rows no id reads (drawn from
+    ``gen``) and a copy of them."""
+    import torch
+
+    out = []
+    for table, ids in lookups:
+        free = torch.ones(table.shape[0], dtype=torch.bool,
+                          device=table.device)
+        free[ids.long()] = False
+        rows = torch.nonzero(free).squeeze(1)
+        pick = torch.randperm(rows.shape[0], generator=gen,
+                              device=rows.device)[:UNTOUCHED_ROWS]
+        rows = rows[pick]
+        out.append((table, rows, table[rows].clone()))
+    return out
+
+
+def check_untouched(where, picked):
+    """After the first AdamW step (m = v = 0 before it) a row with a zero
+    gradient is ``p - lr * (wd * p)``, bitwise."""
+    from repro_torch.training import AdamWConfig
+
+    cfg = AdamWConfig()
+    n = 0
+    for table, rows, before in picked:
+        want = before - (before * cfg.weight_decay) * cfg.lr
+        check(bool((table[rows] == want).all()),
+              f"phase 10: {where} untouched embedding rows are not "
+              f"p - lr * (wd * p)")
+        n += rows.shape[0]
+    return n
+
+
+def train_states_close(where, got, got_out, want, want_out):
+    """The card's train step against the same step on the CPU, within
+    ``repro_torch.training.tolerance.train_step_errors`` (the tolerance the
+    CPU tests hold the port to against the reference).  Returns the largest
+    error of each part."""
+    from repro_torch.training.tolerance import train_step_errors
+
+    worst, bad = train_step_errors(got, float(got_out["loss"]), want,
+                                   float(want_out["loss"]))
+    check(not bad, f"phase 10: {where} differs from the CPU's beyond the "
+          f"train-step tolerance: {bad[:4]}")
+    return worst
+
+
+def reduced_on_cpu(spec, shape_name, dev, seed, steps=2):
+    """The reduced spec's train step on the card against a CPU copy of the
+    same state and inputs, ``steps`` steps."""
+    import torch
+
+    from repro_torch.training.optimizer import tree_map
+
+    red = spec.reduced()
+    shape = red.shapes()[shape_name]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = red.init_state(shape, dev, gen)
+    inputs = red.make_inputs(shape, dev, gen)
+    # copies: the step updates its state in place
+    cpu_state = tree_map(lambda x: x.cpu().clone(), state)
+    cpu_in = tree_map(lambda x: x.cpu().clone(), inputs)
+    step = red.make_step(shape)
+    for i in range(steps):
+        state, out = step(state, inputs)
+        cpu_state, cpu_out = step(cpu_state, cpu_in)
+        worst = train_states_close(f"{red.name} {shape_name} step {i}",
+                                   state, out, cpu_state, cpu_out)
+    return worst
+
+
+def sampled_ids_real(spec, shape, inputs, dev, seed):
+    """Every ``hop1`` id a CSR neighbour of its seed (or the seed) and every
+    ``hop2`` id one of its ``hop1`` parent's, in the graph ``make_csr``
+    draws from a generator seeded as ``make_inputs``'s was."""
+    import torch
+
+    offsets, cols = spec.make_csr(
+        shape, dev, torch.Generator(device=dev).manual_seed(seed))
+    n = shape.dims["n_nodes"]
+    deg = (offsets[1:] - offsets[:-1]).long()
+    keys = (torch.repeat_interleave(torch.arange(n, device=dev), deg) * n
+            + cols.long())
+    keys = torch.sort(keys).values
+    del offsets, cols, deg
+    n_pairs = 0
+    for child, parent in ((inputs["hop1"], inputs["seeds"]),
+                          (inputs["hop2"], inputs["hop1"])):
+        par = parent.long().repeat_interleave(child.shape[0]
+                                              // parent.shape[0])
+        want = par * n + child.long()
+        pos = torch.searchsorted(keys, want).clamp_(max=keys.shape[0] - 1)
+        ok = (keys[pos] == want) | (child.long() == par)
+        check(bool(ok.all()), f"phase 10: {int((~ok).sum())} sampled ids "
+              f"are not CSR neighbours of their parents")
+        n_pairs += child.shape[0]
+    return n_pairs
+
+
+def kernel_group(name):
+    low = name.lower()
+    for group, keys in KERNEL_GROUPS:
+        if any(k in low for k in keys):
+            return group
+    return "elementwise"
+
+
+def busy_ms(events):
+    """The union of the device kernels' intervals, in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, end = 0.0, None
+    for s, e in spans:
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total / 1e3
+
+
+def profile_steps(step, state, inputs):
+    """``PROFILE_STEPS`` more steps under ``torch.profiler``: the device time
+    per step by kernel group (``KERNEL_GROUPS``) and of the largest
+    kernels, the host wall time per step around the same steps, and the
+    device's idle share (1 - busy / wall, the kernels' intervals merged).
+    A trace that holds no device record (the card's at times holds only the
+    host's side) gives None for the device's numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            state, _ = step(state, inputs)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name, groups = {}, {}
+    for e in kernels:
+        ms = e.time_range.elapsed_us() / 1e3 / PROFILE_STEPS
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+        groups[kernel_group(e.name)] = groups.get(kernel_group(e.name),
+                                                  0.0) + ms
+    busy = busy_ms(kernels) / PROFILE_STEPS if kernels else None
+    return {"steps": PROFILE_STEPS, "wall_ms_per_step": wall,
+            "device_busy_ms_per_step": busy,
+            "idle_share": None if busy is None else 1.0 - busy / wall,
+            "kernels_per_step": len(kernels) / PROFILE_STEPS,
+            "groups_ms_per_step": groups or None,
+            "top_kernels_ms_per_step": sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:8]}
+
+
+def train_run(spec, shape, dev, seed):
+    """One train cell at full width: the first step (cold), then
+    ``TRAIN_REPS`` more on the same batch timed by CUDA events (warm,
+    median); the loss finite and lower after them; peak memory."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = spec.init_state(shape, dev, gen)
+    # the inputs from a generator of their own, so that the minibatch's
+    # graph can be drawn again from the same seed
+    inputs = spec.make_inputs(shape, dev, torch.Generator(
+        device=dev).manual_seed(seed + 1))
+    torch.cuda.synchronize()
+    out = {"dims": dict(shape.dims), "setup_s": time.perf_counter() - t0,
+           "state_bytes": state_bytes(state)}
+    if shape.kind == "minibatch":
+        out["sampled_pairs_checked"] = sampled_ids_real(spec, shape, inputs,
+                                                        dev, seed + 1)
+    picked = untouched_rows(embedding_lookups(spec, state["params"], inputs),
+                            torch.Generator(device=dev).manual_seed(seed))
+    step = spec.make_step(shape)
+    t0 = time.perf_counter()
+    state, res = step(state, inputs)
+    losses = [float(res["loss"])]
+    out["first_step_ms"] = (time.perf_counter() - t0) * 1e3
+    out["untouched_rows_checked"] = check_untouched(
+        f"{spec.name} {shape.name}", picked)
+    del picked
+    times = []
+    for _ in range(TRAIN_REPS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, res = step(state, inputs)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+        losses.append(float(res["loss"]))
+    ms = statistics.median(times)
+    flops = spec.model_flops(shape)
+    out.update(ms=ms, ms_all=times, losses=losses, model_flops=flops,
+               tflop_per_s=flops / ms / 1e9,
+               peak_mem_bytes=torch.cuda.max_memory_allocated())
+    check(all(np.isfinite(losses)), f"phase 10: {spec.name} {shape.name} "
+          f"loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"phase 10: {spec.name} {shape.name} "
+          f"loss did not fall over {TRAIN_REPS} steps: {losses}")
+    out["device"] = profile_steps(step, state, inputs)
+    log(f"10 {spec.name} {shape.name} {shape.dims}: {ms:.3f} ms a step, "
+        f"{out['tflop_per_s']:.2f} TFLOP/s, peak {out['peak_mem_bytes']} "
+        f"bytes, loss {losses[0]:.5f} -> {losses[-1]:.5f}; device "
+        f"{out['device']['groups_ms_per_step']} ms a step, idle share "
+        f"{out['device']['idle_share']}")
+    del state, inputs, res
+    return out
+
+
+def optimizer_on_card(dev, seed):
+    """10c: ``adamw_update`` (float32 and bfloat16 moments, the clip
+    binding) and ``compressed_psum`` over four per-device gradients, on the
+    card against the CPU; ms of one update of 22.4 M parameters."""
+    import torch
+
+    from repro_torch.training import (AdamWConfig, adamw_init,
+                                      adamw_update, compressed_psum)
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def tree():
+        return {"emb": torch.randn((1 << 14, 1024), generator=gen),
+                "mlp": [torch.randn((1 << 20,), generator=gen),
+                        torch.randn((333, 77), generator=gen)]}
+
+    params, grads = tree(), tree()
+    out = {}
+    for mdt in ("float32", "bfloat16"):
+        cfg = AdamWConfig(moment_dtype=mdt)
+        runs = []
+        for where in ("cpu", dev):
+            p = tree_map(lambda x: x.to(where).clone(), params)
+            o = adamw_init(p, cfg)
+            for _ in range(3):
+                p, o = adamw_update(
+                    tree_map(lambda x: x.to(where).clone(), grads), o, p,
+                    cfg)
+            runs.append(tree_leaves([p, o["m"], o["v"]]))
+        worst = 0.0
+        for a, b in zip(*runs):
+            b = b.cpu()
+            rtol = 2.0 ** -7 if b.dtype == torch.bfloat16 else 1e-5
+            a, b = a.float(), b.float()
+            err = (a - b).abs()
+            check(bool((err <= 1e-6 * float(a.abs().max())
+                        + rtol * a.abs()).all()),
+                  f"phase 10c: adamw_update ({mdt} moments) on the card "
+                  f"differs from the CPU (max abs err {float(err.max())})")
+            worst = max(worst, float(err.max()))
+        p = tree_map(lambda x: x.to(dev).clone(), params)
+        o = adamw_init(p, cfg)
+        g = tree_map(lambda x: x.to(dev).clone(), grads)
+        ms = cuda_ms(lambda _: adamw_update(g, o, p, cfg), 5)
+        out[mdt] = {"max_abs_err": worst, "update_ms": ms}
+        del p, o, g
+    g = [torch.randn((1 << 22,), generator=gen) for _ in range(4)]
+    r = [torch.randn((1 << 22,), generator=gen) * 1e-3 for _ in range(4)]
+    a_tot, a_res = compressed_psum(g, r)
+    gd, rd = [x.to(dev) for x in g], [x.to(dev) for x in r]
+    b_tot, b_res = compressed_psum(gd, rd)
+    same = torch.equal(a_tot, b_tot.cpu()) and all(
+        torch.equal(x, y.cpu()) for x, y in zip(a_res, b_res))
+    check(same, "phase 10c: compressed_psum on the card differs from the CPU")
+    out["compressed_psum"] = {"devices": 4, "elements": 1 << 22,
+                              "bitwise": True,
+                              "ms": cuda_ms(lambda _: compressed_psum(gd, rd),
+                                            5)}
+    log(f"10c adamw_update on the card equals the CPU: {out}")
+    return out
+
+
+def train_path(seed):
+    """Phase 10: the four recsys train steps at full width (10a), the GCN's
+    four shapes at full width (10b), the optimiser on the card against the
+    CPU (10c); every reduced train step against its CPU copy.  No kernel of
+    ``csrc`` lies on this path: the launches are counted to show none ran."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda", 0)
+    out = {"archs": {}, "gcn": {}, "cpu_agrees": {}}
+    ops.reset_launch_counts()
+    for name in TRAIN_ARCHS:
+        t0 = time.perf_counter()
+        spec = train_spec(name)
+        out["archs"][name] = train_run(spec, spec.shapes()["train_batch"],
+                                       dev, seed)
+        out["archs"][name]["s"] = time.perf_counter() - t0
+    gcn = get_arch("gcn-cora")
+    for name in GCN_SHAPES:
+        t0 = time.perf_counter()
+        out["gcn"][name] = train_run(gcn, gcn.shapes()[name], dev, seed)
+        out["gcn"][name]["s"] = time.perf_counter() - t0
+    out["launches"] = ops.launch_counts()
+    check(not any(out["launches"].values()),
+          f"phase 10: a csrc kernel launched on the train path: "
+          f"{out['launches']}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for name in TRAIN_ARCHS:
+        out["cpu_agrees"][name] = reduced_on_cpu(get_arch(name),
+                                                 "train_batch", dev, seed)
+    for name in GCN_SHAPES:
+        out["cpu_agrees"][f"gcn-cora {name}"] = reduced_on_cpu(
+            gcn, name, dev, seed)
+    out["cpu_agrees_s"] = time.perf_counter() - t0
+    log(f"10: every reduced train step equals its CPU copy: "
+        f"{out['cpu_agrees']}")
+    out["optimizer"] = optimizer_on_card(dev, seed)
+    return out
+
+
 def compare_runs(key, runs, kernels):
     """The cuda and torch runs of one stream: every state leaf and result
     identical, and ``kernels`` launched by the cuda run."""
@@ -3341,6 +3742,10 @@ def main(argv=None):
     record["recsys"] = recsys_path(args.seed)
     record["recsys"]["wall_s"] = time.perf_counter() - t0
     log(f"phase 9: {record['recsys']['wall_s']:.1f} s")
+    t0 = time.perf_counter()
+    record["train"] = train_path(args.seed)
+    record["train"]["wall_s"] = time.perf_counter() - t0
+    log(f"phase 10: {record['train']['wall_s']:.1f} s")
     record["total_s"] = time.perf_counter() - smoke_t0
     log(f"smoke: {record['total_s']:.1f} s")
 
@@ -3363,7 +3768,7 @@ def main(argv=None):
             "launches_by_path": {p: record[p]["launches"].get(name, 0)
                                  for p in ("main", "quant", "fresh", "local",
                                            "hnsw", "segments", "serving",
-                                           "sharded", "recsys")},
+                                           "sharded", "recsys", "train")},
             "max_abs_err": g.get("max_abs_err"),
             "grid_bitwise": name in grid,
             "ms": g.get("ms"), "public_ms": g.get("public_ms"),

@@ -14,7 +14,7 @@ Every arch exposes, per input shape ("cell"):
 
 The reference's ``MeshAxes``, ``axes_of``, ``map_rules`` and the
 ``*_shardings`` methods are ``PartitionSpec`` machinery for its dry run;
-they wait for the ``launch/mesh`` slice (ROADMAP slice 15).
+they wait for the ``launch/mesh`` slice (ROADMAP Queue 1, item 4).
 """
 from __future__ import annotations
 

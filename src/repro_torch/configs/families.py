@@ -1,11 +1,13 @@
 """Per-family ArchSpec implementations (``repro/configs/families.py``): the
-recsys half (DLRM, DIN, two-tower).  The LM and GNN specs wait for their
-slices (ROADMAP slice 15), as does every ``train`` step: ``make_step`` on a
-``train`` shape raises ``NotImplementedError``.
+GNN family (GCN) and the recsys half (DLRM, DIN, two-tower).  The LM spec
+waits for its slice (ROADMAP Queue 1, item 2).
 
-Serve and retrieval steps run under ``torch.no_grad``.  ``make_step``'s
-``n_shards`` stands for the reference's ``axes.all_size``: the block count
-of ``TwoTowerSpec``'s two-phase top-k.
+A ``train`` step is the reference's: the loss's value and gradients
+(``torch.autograd``, dense), then ``adamw_update`` with ``AdamWConfig()``,
+returning ``({"params", "opt"}, {"loss"})``; it updates the state's
+tensors in place.  Serve and retrieval steps run under ``torch.no_grad``.
+``make_step``'s ``n_shards`` stands for the reference's ``axes.all_size``:
+the block count of ``TwoTowerSpec``'s two-phase top-k.
 """
 from __future__ import annotations
 
@@ -15,32 +17,33 @@ from typing import Dict
 import torch
 
 from ..core.types import resolve_device
+from ..models import gnn as gnn_mod
 from ..models import recsys as rec_mod
+from ..training.optimizer import AdamWConfig, adamw_init, adamw_update
+from ..training.train import value_and_grad
 from .base import ArchSpec, ShapeSpec, generator_for, pad_to
 
-TRAIN_WAITS = ("the recsys train steps wait for the training slice "
-               "(ROADMAP slice 15: training/{optimizer,train}.py)")
 
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
-def _state(params, shape: ShapeSpec, device) -> dict:
-    """``{"params": ...}``, plus for a ``train`` shape the optimiser state
-    of the reference's ``training/optimizer.py::adamw_init`` (float32
-    moments, an int32 step count)."""
+def _state(params, shape: ShapeSpec) -> dict:
+    """``{"params": ...}``, plus for a ``train`` shape ``adamw_init``'s
+    optimiser state (float32 moments, an int32 step count)."""
     if shape.kind != "train":
         return {"params": params}
-    return {"params": params, "opt": {
-        "m": _tree_map(torch.zeros_like, params),
-        "v": _tree_map(torch.zeros_like, params),
-        "step": torch.zeros((), dtype=torch.int32,
-                            device=resolve_device(device))}}
+    return {"params": params, "opt": adamw_init(params)}
+
+
+def _train_step(loss_of):
+    """The reference's ``train_step``: value-and-grad of ``loss_of(params,
+    inputs)``, then AdamW with ``AdamWConfig()``."""
+    opt_cfg = AdamWConfig()
+
+    def train_step(state, inputs):
+        loss, grads = value_and_grad(loss_of)(state["params"], inputs)
+        params, opt = adamw_update(grads, state["opt"], state["params"],
+                                   opt_cfg)
+        return {"params": params, "opt": opt}, {"loss": loss}
+
+    return train_step
 
 
 def _randint(gen, high: int, shape, device) -> torch.Tensor:
@@ -62,9 +65,169 @@ def _labels(gen, b: int, device) -> torch.Tensor:
     return (torch.rand((b,), generator=gen, device=device) < 0.25).float()
 
 
-def _no_train(shape: ShapeSpec) -> None:
-    if shape.kind == "train":
-        raise NotImplementedError(TRAIN_WAITS)
+# ===========================================================================
+# GNN family (GCN)
+# ===========================================================================
+
+
+@dataclasses.dataclass(frozen=True)
+class GNNSpec(ArchSpec):
+    name: str
+    n_layers: int = 2
+    d_hidden: int = 16
+    family: str = "gnn"
+    scale: float = 1.0  # reduced() shrinks shapes
+
+    def _dims(self, v: int) -> int:
+        return max(4, int(v * self.scale))
+
+    def _padded(self, v: int) -> int:
+        """Mesh-aligned capacity for arrays sharded over the full mesh
+        (production graph allocators pad to the shard grain)."""
+        v = self._dims(v)
+        return pad_to(v, 512) if self.scale == 1.0 else v
+
+    def shapes(self) -> Dict[str, ShapeSpec]:
+        s = self._dims
+        return {
+            "full_graph_sm": ShapeSpec(
+                "full_graph_sm", "fullbatch",
+                {"n_nodes": self._padded(2708), "n_edges": self._padded(10556),
+                 "d_feat": s(1433), "n_classes": 7},
+            ),
+            "minibatch_lg": ShapeSpec(
+                "minibatch_lg", "minibatch",
+                {"n_nodes": self._padded(232965),
+                 "n_edges": self._padded(114615892) if self.scale == 1.0 else s(10000),
+                 "batch_nodes": s(1024), "fan1": 15 if self.scale == 1.0 else 3,
+                 "fan2": 10 if self.scale == 1.0 else 2, "d_feat": s(602),
+                 "n_classes": 41},
+            ),
+            "ogb_products": ShapeSpec(
+                "ogb_products", "fullbatch",
+                {"n_nodes": self._padded(2449029),
+                 "n_edges": self._padded(61859140),
+                 "d_feat": s(100), "n_classes": 47},
+            ),
+            "molecule": ShapeSpec(
+                "molecule", "graphbatch",
+                {"n_nodes": 30, "n_edges": 64, "batch": s(128),
+                 "d_feat": s(32), "n_classes": 16},
+            ),
+        }
+
+    def _cfg(self, shape: ShapeSpec) -> gnn_mod.GCNConfig:
+        return gnn_mod.GCNConfig(
+            name=self.name, n_layers=self.n_layers, d_hidden=self.d_hidden,
+            d_feat=shape.dims["d_feat"], n_classes=shape.dims["n_classes"],
+            graph_level=(shape.kind == "graphbatch"),
+        )
+
+    def init_state(self, shape, device=None, generator=None):
+        params = gnn_mod.init_gcn_params(
+            generator_for(device, generator), self._cfg(shape),
+            device=device)
+        return {"params": params, "opt": adamw_init(params)}
+
+    def make_csr(self, shape, device=None, generator=None):
+        """The minibatch shape's graph: a seeded random CSR over ``n_nodes``
+        with ``n_edges`` edges (uniform sources and targets), as
+        ``(row_offsets int32 (N + 1,), cols int32 (E,))``.  ``make_inputs``
+        draws it first from its generator, so a generator seeded alike
+        gives the graph its samples came from."""
+        dev = resolve_device(device)
+        gen = generator_for(dev, generator)
+        n, e = shape.dims["n_nodes"], shape.dims["n_edges"]
+        offsets = torch.zeros((n + 1,), dtype=torch.int32, device=dev)
+        counts = torch.bincount(_randint(gen, n, (e,), dev), minlength=n)
+        offsets[1:] = torch.cumsum(counts, 0)
+        return offsets, _randint(gen, n, (e,), dev)
+
+    def make_inputs(self, shape, device=None, generator=None):
+        dev = resolve_device(device)
+        gen = generator_for(dev, generator)
+        d = shape.dims
+        if shape.kind == "fullbatch":
+            n = d["n_nodes"]
+            return {
+                "feats": _randn(gen, (n, d["d_feat"]), dev),
+                "edges": _randint(gen, n, (2, d["n_edges"]), dev),
+                "labels": _randint(gen, d["n_classes"], (n,), dev),
+            }
+        if shape.kind == "minibatch":
+            b, f1, f2 = d["batch_nodes"], d["fan1"], d["fan2"]
+            if dev.type == "meta":
+                seeds = _randint(gen, 1, (b,), dev)
+                hop1 = _randint(gen, 1, (b * f1,), dev)
+                hop2 = _randint(gen, 1, (b * f1 * f2,), dev)
+            else:
+                offsets, cols = self.make_csr(shape, dev, gen)
+                seeds = _randint(gen, d["n_nodes"], (b,), dev)
+                hop1 = gnn_mod.sample_neighbors(gen, offsets, cols, seeds,
+                                                f1).reshape(-1)
+                hop2 = gnn_mod.sample_neighbors(gen, offsets, cols, hop1,
+                                                f2).reshape(-1)
+                del offsets, cols
+            return {
+                "feats": _randn(gen, (d["n_nodes"], d["d_feat"]), dev),
+                "seeds": seeds, "hop1": hop1, "hop2": hop2,
+                "labels": _randint(gen, d["n_classes"], (b,), dev),
+            }
+        # graph batch: ``batch`` disjoint graphs of ``n_nodes`` nodes, each
+        # with ``n_edges`` edges inside it
+        g, nodes = d["batch"], d["n_nodes"]
+        if dev.type == "meta":
+            edges = _randint(gen, 1, (2, g * d["n_edges"]), dev)
+            graph_ids = _randint(gen, 1, (g * nodes,), dev)
+        else:
+            base = (torch.arange(g, dtype=torch.int32, device=dev)
+                    * nodes)[None, :, None]
+            edges = (_randint(gen, nodes, (2, g, d["n_edges"]), dev)
+                     + base).reshape(2, -1)
+            graph_ids = torch.arange(g * nodes, dtype=torch.int32,
+                                     device=dev) // nodes
+        return {
+            "feats": _randn(gen, (g * nodes, d["d_feat"]), dev),
+            "edges": edges,
+            "graph_ids": graph_ids,
+            "labels": _randint(gen, d["n_classes"], (g,), dev),
+        }
+
+    def make_step(self, shape, n_shards: int = 1):
+        cfg = self._cfg(shape)
+        n_graphs = shape.dims.get("batch", 0)
+
+        def loss_of(p, inputs):
+            if shape.kind == "minibatch":
+                return gnn_mod.sampled_gcn_loss(p, cfg, inputs)
+            batch = dict(inputs)
+            if shape.kind == "graphbatch":
+                batch["n_graphs"] = n_graphs
+            return gnn_mod.gcn_loss(p, cfg, batch)
+
+        return _train_step(loss_of)
+
+    def model_flops(self, shape: ShapeSpec) -> float:
+        cfg = self._cfg(shape)
+        d = shape.dims
+        if shape.kind == "minibatch":
+            b, f1, f2 = d["batch_nodes"], d["fan1"], d["fan2"]
+            fwd = 2.0 * (
+                b * f1 * f2 * cfg.d_feat * cfg.d_hidden
+                + b * f1 * cfg.d_hidden * cfg.n_classes
+            )
+            return 3.0 * fwd
+        n = d["n_nodes"] * d.get("batch", 1)
+        e = d["n_edges"] * d.get("batch", 1)
+        dims = cfg.layer_dims()
+        fwd = sum(2.0 * n * i * o for i, o in dims)  # transforms
+        fwd += sum(2.0 * e * o for _, o in dims)     # message adds
+        return 3.0 * fwd
+
+    def reduced(self) -> "GNNSpec":
+        return dataclasses.replace(
+            self, name=self.name + "-reduced", scale=0.01
+        )
 
 
 # ===========================================================================
@@ -113,7 +276,7 @@ class DLRMSpec(ArchSpec):
         params = rec_mod.init_dlrm_params(
             generator_for(device, generator), self._padded_cfg(),
             device=device)
-        return _state(params, shape, device)
+        return _state(params, shape)
 
     def _batch(self, shape):
         if shape.kind == "retrieval":
@@ -134,8 +297,10 @@ class DLRMSpec(ArchSpec):
         return out
 
     def make_step(self, shape, n_shards: int = 1):
-        _no_train(shape)
         cfg = self.cfg
+        if shape.kind == "train":
+            return _train_step(
+                lambda p, inputs: rec_mod.dlrm_loss(p, cfg, inputs))
 
         @torch.no_grad()
         def serve_step(state, inputs):
@@ -191,7 +356,7 @@ class DINSpec(ArchSpec):
         params = rec_mod.init_din_params(
             generator_for(device, generator), self._padded_cfg(),
             device=device)
-        return _state(params, shape, device)
+        return _state(params, shape)
 
     def make_inputs(self, shape, device=None, generator=None):
         dev = resolve_device(device)
@@ -216,8 +381,10 @@ class DINSpec(ArchSpec):
         return out
 
     def make_step(self, shape, n_shards: int = 1):
-        _no_train(shape)
         cfg = self.cfg
+        if shape.kind == "train":
+            return _train_step(
+                lambda p, inputs: rec_mod.din_loss(p, cfg, inputs))
         if shape.kind == "retrieval":
 
             @torch.no_grad()
@@ -294,7 +461,7 @@ class TwoTowerSpec(ArchSpec):
         params = rec_mod.init_two_tower_params(
             generator_for(device, generator), self._padded_cfg(),
             device=device)
-        state = _state(params, shape, device)
+        state = _state(params, shape)
         if shape.kind == "retrieval":
             n = shape.dims["n_candidates"]
             if self.scale == 1.0:
@@ -319,8 +486,10 @@ class TwoTowerSpec(ArchSpec):
         }
 
     def make_step(self, shape, n_shards: int = 1):
-        _no_train(shape)
         cfg = self.cfg
+        if shape.kind == "train":
+            return _train_step(
+                lambda p, inputs: rec_mod.two_tower_loss(p, cfg, inputs))
         if shape.kind == "retrieval":
             n_blocks = n_shards if self.two_phase_topk else 1
 
@@ -367,5 +536,5 @@ class TwoTowerSpec(ArchSpec):
         )
 
 
-__all__ = ["DINSpec", "DLRMSpec", "RECSYS_SHAPES", "TRAIN_WAITS",
+__all__ = ["DINSpec", "DLRMSpec", "GNNSpec", "RECSYS_SHAPES",
            "TwoTowerSpec"]

@@ -22,7 +22,13 @@ weights ``(in, out)`` as they are (the port uses no ``nn.Linear``, so
 nothing is transposed): ``params_from_numpy`` / ``params_to_numpy``, and
 ``module_from_numpy`` loads a tree into ``DLRM`` / ``DIN`` / ``TwoTower``.
 A reference tree of JAX arrays goes in as it is (each leaf through
-``np.asarray``).
+``np.asarray``).  The same functions carry the GCN's parameters (a list of
+``{"w", "b"}`` layers) and a train state ``{"params", "opt": {"m", "v",
+"step"}}``, AdamW's moments and its int32 step count included, so the
+reference's exact state can be fed to the port's train step and back.
+bfloat16 moments come in from the reference's ``bfloat16`` arrays and go
+out widened to float32, which holds them exactly (numpy has no bfloat16;
+the reference's update reads its moments in float32 either way).
 """
 from __future__ import annotations
 
@@ -44,6 +50,9 @@ def _tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype == np.uint32:
         return words_from_numpy(a, device)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            dtype=torch.bfloat16, device=device)
     return torch.from_numpy(np.array(a, copy=True)).to(
         dtype=_DTYPES[a.dtype], device=device)
 
@@ -105,12 +114,14 @@ def params_from_numpy(tree, device=None):
 
 
 def params_to_numpy(tree):
-    """A parameter tree of tensors -> the same tree of numpy arrays."""
+    """A parameter tree of tensors -> the same tree of numpy arrays
+    (bfloat16 leaves widened to float32)."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_to_numpy(v) for v in tree]
-    return tree.detach().cpu().numpy()
+    t = tree.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
 
 def module_from_numpy(cls, cfg, tree, device=None):

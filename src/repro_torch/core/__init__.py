@@ -65,10 +65,13 @@ from .quant import (QuantStore, dequantize_rows, init_quant_store,
                     quant_dists_to_ids_batched, quant_write_rows,
                     quantize_rows)
 from .recall import brute_force_topk, graph_recall, recall_at_k
-from .runbook import (make_dataset, make_runbook, runbook_segment_plan,
-                      runbook_update_stream, sliding_window_runbook)
+from .runbook import (Runbook, RunbookStep, make_dataset, make_runbook,
+                      runbook_segment_plan, runbook_update_stream,
+                      sliding_window_runbook, step_update_batch)
 from .search import SearchResult, greedy_search, search_batch
-from .search_batched import batched_greedy_search, resolved_hop_fused
+from .search_batched import (batched_greedy_search, merge_topk, next_bucket,
+                             pad_batch, resolved_hop_fused)
+from . import bitset
 from .types import (
     INVALID,
     KIND_DELETE,

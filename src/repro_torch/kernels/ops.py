@@ -81,8 +81,23 @@ def topk_search(queries, vectors, norms=None, *, k, metric="l2", bias=None):
                             metric=metric)
 
 
+def make_kernel_distance_fn():
+    """A drop-in ``distance_fn`` for ``repro_torch.core.search.greedy_search``
+    over ``gather_distances``.
+
+    Legacy injection point: ``ANNConfig(backend="cuda")`` routes every hot
+    path (not just search) through the kernels.
+    """
+
+    def distance_fn(state, cfg, q, ids):
+        return gather_distances(ids, q, state.vectors, state.norms,
+                                metric=cfg.metric)
+
+    return distance_fn
+
+
 __all__ = [
     "beam_hop", "beam_hop_q", "gather_distances", "gather_distances_batched",
-    "gather_distances_batched_q",
-    "launch_counts", "ref", "reset_launch_counts", "topk_search",
+    "gather_distances_batched_q", "launch_counts", "make_kernel_distance_fn",
+    "ref", "reset_launch_counts", "topk_search",
 ]

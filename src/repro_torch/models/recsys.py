@@ -57,10 +57,10 @@ def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     ids = ids.long()
     ids = torch.where(ids < 0, ids + v, ids)
     ok = (ids >= 0) & (ids < v)
-    rows = table[ids.clamp(0, v - 1)]
-    return torch.where(ok.unsqueeze(-1), rows,
-                       torch.full((), float("nan"), dtype=rows.dtype,
-                                  device=rows.device))
+    # the NaN fill in place on the gathered rows (one copy of them, not
+    # two); under autograd their gradient is dropped, as ``jnp.take``'s is
+    return table[ids.clamp(0, v - 1)].masked_fill_(~ok.unsqueeze(-1),
+                                                   float("nan"))
 
 
 def _segment_sum(x, segment_ids, n_segments: int):
@@ -123,10 +123,12 @@ def _mlp(p, x, final_act=None):
 
 
 def bce_loss(logits, labels):
-    """The reference's stable form: mean(max(z, 0) - z y + log1p(e^-|z|))."""
-    logits = logits.to(torch.float32)
-    return torch.mean(torch.clamp(logits, min=0) - logits * labels
-                      + torch.log1p(torch.exp(-logits.abs())))
+    """The reference's stable form: mean(max(z, 0) - z y + log1p(e^-|z|)),
+    with ``jnp.maximum``'s and ``jnp.abs``'s gradients at z = 0 (0.5 and
+    1; ``clamp`` and ``abs`` give 1 and 0)."""
+    z = logits.to(torch.float32)
+    return torch.mean(torch.maximum(z, torch.zeros_like(z)) - z * labels
+                      + torch.log1p(torch.exp(-torch.where(z >= 0, z, -z))))
 
 
 def _top_k(x, k: int):
@@ -371,13 +373,37 @@ def two_tower_embed(params, cfg: TwoTowerConfig, user_ids, item_ids):
     return u, i
 
 
-def two_tower_loss(params, cfg: TwoTowerConfig, batch):
-    """In-batch sampled softmax with logQ-style uniform correction."""
-    u, i = two_tower_embed(params, cfg, batch["user_ids"], batch["item_ids"])
-    logits = (u @ i.T).to(torch.float32)                      # (B, B)
+# in-batch logits per block of rows (2^28 floats, 1 GiB): at the train
+# batch of 65,536 the whole (B, B) matrix is 17.2 GB, and its backward
+# would hold several
+LOGIT_BLOCK = 1 << 28
+
+
+def _row_nll(u_rows, i, row0: int):
+    logits = (u_rows @ i.T).to(torch.float32)                 # (b, B)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.diagonal(logits)
-    return torch.mean(lse - ll)
+    ll = torch.diagonal(logits, offset=row0)
+    return lse - ll
+
+
+def two_tower_loss(params, cfg: TwoTowerConfig, batch):
+    """In-batch sampled softmax with logQ-style uniform correction:
+    mean over rows of logsumexp(u_r . i) - u_r . i_r.  Rows go in blocks
+    of at most ``LOGIT_BLOCK`` logits; under autograd each block is
+    recomputed in the backward (``torch.utils.checkpoint``), so one block's
+    logits are held at a time.  Each row's arithmetic is the unblocked
+    one's."""
+    u, i = two_tower_embed(params, cfg, batch["user_ids"], batch["item_ids"])
+    b = u.shape[0]
+    rows = max(1, LOGIT_BLOCK // b)
+    if not torch.is_grad_enabled() or rows >= b:
+        return torch.mean(torch.cat([_row_nll(u[r:r + rows], i, r)
+                                     for r in range(0, b, rows)]))
+    from torch.utils.checkpoint import checkpoint
+
+    return torch.mean(torch.cat([
+        checkpoint(_row_nll, u[r:r + rows], i, r, use_reentrant=False)
+        for r in range(0, b, rows)]))
 
 
 def two_tower_score_candidates(params, cfg: TwoTowerConfig, user_ids,

@@ -25,8 +25,9 @@ specs equal the reference's, their ``abstract_state`` /
 ``jax.jit(spec.make_step(shape))``.
 
 Card cases (``python -m pytest --noconftest -m requires_cuda
-tests/test_torch_recsys.py``) hold the reduced steps and the twin's path B
-on the card against the CPU; JAX is imported inside the CPU tests only.
+tests/test_torch_recsys.py``) hold the reduced steps (serve, retrieval and
+train) and the twin's path B on the card against the CPU; JAX is imported
+inside the CPU tests only.
 """
 import contextlib
 import dataclasses
@@ -38,11 +39,11 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import ATOL, RTOL, cuda_device  # noqa: F401
+from torch_parity import (ATOL, RTOL, assert_train_step_close,  # noqa: F401
+                          cuda_device)
 
 from repro_torch import convert
 from repro_torch.configs import all_archs
-from repro_torch.configs.families import TRAIN_WAITS
 from repro_torch.data import ClickStream, TokenStream
 from repro_torch.models import recsys as tr
 
@@ -459,7 +460,7 @@ def test_arch_spec_matches_reference(arch, reduced):
 def test_registry_lists_the_recsys_archs():
     from repro_torch.configs import get_arch
 
-    assert sorted(all_archs()) == list(ARCHS)
+    assert sorted(all_archs()) == sorted(ARCHS + ("gcn-cora",))
     with pytest.raises(KeyError) as e:
         get_arch("nope")
     assert "unknown arch 'nope'; available: ['din', " in str(e.value)
@@ -480,12 +481,129 @@ def test_abstract_trees_at_full_width(arch, shape_name):
         j.abstract_inputs(js))
 
 
+@pytest.mark.parametrize("data", ["grid", "gauss"])
 @pytest.mark.parametrize("arch", ARCHS)
-def test_train_step_waits_for_training(arch):
-    t = all_archs()[arch].reduced()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        t.make_step(t.shapes()["train_batch"])
-    assert "ROADMAP" in TRAIN_WAITS
+def test_train_step_matches_reference(arch, data):
+    """The reduced spec's ``train_batch`` step against ``jax.jit`` of the
+    reference's (on Gaussian data two steps, the second from the
+    reference's state, so the moments are not zero): loss, params, m, v and step to the whole-step
+    tolerances of ``torch_parity.assert_train_step_close``."""
+    import jax
+
+    t, j = all_archs()[arch].reduced(), _jspec(arch, reduced=True)
+    shape = t.shapes()["train_batch"]
+    gen = torch.Generator().manual_seed(5)
+    state = convert.params_to_numpy(t.init_state(shape, "cpu", gen))
+    inputs = convert.params_to_numpy(t.make_inputs(shape, "cpu", gen))
+    if data == "grid":
+        rng = np.random.default_rng(5)
+        state["params"] = _gridify(state["params"], rng)
+        inputs = _gridify(inputs, rng)
+    j_step = jax.jit(j.make_step(j.shapes()["train_batch"]))
+    t_step = t.make_step(shape)
+    # grid data: one step (its forward is exact, so a ReLU input of 0 is 0
+    # on both sides; after an update such inputs sit within rounding of the
+    # kink and the two sides' ReLUs may differ)
+    for i in range(1 if data == "grid" else 2):
+        jstate, jout = j_step(state, inputs)
+        tstate, tout = t_step(_t(state), _t(inputs))
+        assert sorted(tout) == ["loss"] and sorted(tstate) == ["opt",
+                                                               "params"]
+        assert_train_step_close(tstate, tout, jstate, jout,
+                                where=f"{arch} {data} step {i}")
+        state = _np(jstate)
+
+
+def test_bce_loss_gradient_at_zero():
+    """A logit of exactly 0: ``jnp.maximum``'s gradient there is 0.5 and
+    ``jnp.abs``'s 1, so d/dz = 0.5 - y + (-1) * 0.5 = -y; the port's
+    gradient equals the reference's at every logit."""
+    import jax
+
+    from repro.models import recsys as jr
+
+    logits = np.array([0.0, 0.0, -1.5, 0.0, 2.0, 0.0], np.float32)
+    labels = np.array([0, 1, 1, 0, 0, 1], np.float32)
+    want = np.asarray(jax.grad(jr.bce_loss)(logits, labels))
+    z = _t(logits).requires_grad_()
+    tr.bce_loss(z, _t(labels)).backward()
+    np.testing.assert_allclose(z.grad.numpy(), want, rtol=RTOL, atol=ATOL)
+    at0 = [0, 1, 3, 5]
+    np.testing.assert_array_equal(z.grad.numpy()[at0], want[at0])
+    np.testing.assert_allclose(want[at0], -labels[at0] / len(logits),
+                               atol=1e-7)
+
+
+def test_take_rows_gradient_drops_nan_rows():
+    """The gradient of ``take_rows`` is ``jnp.take``'s: a dense scatter-add
+    into the table, wrapped ids on their rows, nothing from the NaN rows of
+    out-of-range ids."""
+    import jax
+    import jax.numpy as jnp
+
+    table = np.arange(15, dtype=np.float32).reshape(5, 3)
+    ids = np.array([1, -1, 5, 1, -7, 0], np.int32)
+    w = np.random.default_rng(0).normal(size=(6, 3)).astype(np.float32)
+
+    def f(tab):
+        rows = jnp.take(tab, ids, axis=0)
+        return jnp.sum(jnp.where(jnp.isnan(rows), 0.0, rows) * w)
+
+    want = np.asarray(jax.grad(f)(table))
+    tab = _t(table).requires_grad_()
+    rows = tr.take_rows(tab, _t(ids))
+    torch.sum(torch.nan_to_num(rows, nan=0.0) * _t(w)).backward()
+    np.testing.assert_array_equal(tab.grad.numpy(), want)
+    assert tab.grad.layout == torch.strided
+
+
+def test_two_tower_loss_in_row_blocks(monkeypatch):
+    """The in-batch loss recomputed per block of rows under autograd
+    (``torch.utils.checkpoint``): the loss equals the unblocked
+    computation's bitwise (each row's arithmetic is the same), the
+    gradients to rtol 1e-5 / atol 1e-6 of each one's largest value (the
+    item side's gradient sums block by block)."""
+    from repro.models import recsys as jr
+
+    rng = np.random.default_rng(7)
+    cfg = tr.TwoTowerConfig(name="t", embed_dim=8, tower_mlp=(16, 8),
+                            user_vocab=40, item_vocab=50)
+    p = _ref_params(jr.init_two_tower_params, cfg, "gauss")
+    batch = _t({"user_ids": rng.integers(0, 40, 37).astype(np.int32),
+                "item_ids": rng.integers(0, 50, 37).astype(np.int32)})
+    out = []
+    for block in (tr.LOGIT_BLOCK, 37 * 5):           # one block; 8 blocks
+        monkeypatch.setattr(tr, "LOGIT_BLOCK", block)
+        params = _map(lambda x: x.clone().requires_grad_(), _t(p))
+        loss = tr.two_tower_loss(params, cfg, batch)
+        leaves = [params["user_emb"], params["item_emb"],
+                  *params["user_tower"]["w"], *params["item_tower"]["w"]]
+        out.append([loss.detach()] + list(torch.autograd.grad(loss, leaves)))
+    assert torch.equal(out[0][0], out[1][0])
+    for a, b in zip(out[0][1:], out[1][1:]):
+        torch.testing.assert_close(b, a, rtol=1e-5,
+                                   atol=1e-6 * float(a.abs().max()))
+
+
+def test_din_empty_history_has_finite_gradients():
+    """``hist_len = 0`` masks every score but position 0: the loss and
+    every gradient are finite."""
+    from repro.models import recsys as jr
+    from repro_torch.training import value_and_grad
+    from repro_torch.training.optimizer import tree_leaves
+
+    cfg = tr.DINConfig(name="t", embed_dim=4, seq_len=6, attn_mlp=(8, 4),
+                       mlp=(8, 4), item_vocab=20)
+    p = _t(_ref_params(jr.init_din_params, cfg, "gauss"))
+    batch = _t({"hist": np.arange(18, dtype=np.int32).reshape(3, 6),
+                "hist_len": np.array([0, 0, 3], np.int32),
+                "target": np.array([1, 5, 7], np.int32),
+                "labels": np.array([1, 0, 1], np.float32)})
+    loss, grads = value_and_grad(
+        lambda q, b: tr.din_loss(q, cfg, b))(p, batch)
+    assert torch.isfinite(loss)
+    for g in tree_leaves(grads):
+        assert torch.isfinite(g).all()
 
 
 def _step_pair(arch, shape_name, data, seed=0, two_phase=None):
@@ -682,6 +800,30 @@ def test_reduced_steps_on_card(cuda_device):
             for key in ref:
                 _close(out[key].cpu().numpy(), ref[key].numpy(), False,
                        f"{arch} {name} {key}")
+
+
+@pytest.mark.requires_cuda
+def test_reduced_train_steps_on_card(cuda_device):
+    """Each reduced spec's train step on the card against the same step on
+    a CPU copy, two steps, to the whole-step tolerances of
+    ``torch_parity.assert_train_step_close`` (the card's scatter-adds and
+    reductions run in other orders)."""
+    for arch in ARCHS:
+        t = all_archs()[arch].reduced()
+        shape = t.shapes()["train_batch"]
+        gen = torch.Generator(device=cuda_device).manual_seed(2)
+        state = t.init_state(shape, cuda_device, gen)
+        inputs = t.make_inputs(shape, cuda_device, gen)
+        cpu_state = _map(lambda x: x.cpu().clone(), state)
+        cpu_in = _map(lambda x: x.cpu(), inputs)
+        step = t.make_step(shape)
+        for i in range(2):
+            state, out = step(state, inputs)
+            cpu_state, cpu_out = step(cpu_state, cpu_in)
+            assert_train_step_close(state, out,
+                                    convert.params_to_numpy(cpu_state),
+                                    {"loss": cpu_out["loss"].numpy()},
+                                    where=f"{arch} step {i}")
 
 
 @pytest.mark.requires_cuda

@@ -50,6 +50,8 @@ def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import repro_torch, repro_torch.core, repro_torch.convert; "
             "import repro_torch.kernels.ops; "
+            "import repro_torch.training, repro_torch.configs; "
+            "import repro_torch.models.gnn, repro_torch.models.layers; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules); print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -497,3 +499,37 @@ def test_quantized_init_state_has_reference_leaves():
         assert a.shape == b.shape and a.dtype == b.dtype, f
         np.testing.assert_array_equal(a, b)
     assert init_state(ANNConfig(dim=20, n_cap=70), "cpu").quant is None
+
+
+def test_front_doors_resolve_the_references_names():
+    """Every name of ``repro.core.__all__`` resolves in ``repro_torch.core``
+    (``from repro_torch.core import X``), except ``search_batch_vmap``: the
+    port has no ``vmap`` engine."""
+    import repro.core as ref_core
+    import repro_torch.core as port_core
+
+    missing = [name for name in ref_core.__all__
+               if name != "search_batch_vmap"
+               and not hasattr(port_core, name)]
+    assert not missing
+    assert not hasattr(port_core, "search_batch_vmap")
+
+
+def test_kernel_distance_fn_drives_greedy_search():
+    """``kernels.ops.make_kernel_distance_fn`` injected into
+    ``greedy_search`` gives the engine's own answer, as the reference's
+    does (``tests/test_kernels.py``)."""
+    from repro_torch.core import StreamingIndex, greedy_search
+    from repro_torch.kernels.ops import make_kernel_distance_fn
+
+    rng = np.random.default_rng(0)
+    data = (rng.integers(-64, 65, size=(200, 16)) / 16).astype(np.float32)
+    cfg = ANNConfig(dim=16, n_cap=256, r=8, l_build=16, l_search=16)
+    idx = StreamingIndex(cfg, device="cpu")
+    idx.insert(np.arange(120), data[:120])
+    q = torch.from_numpy(data[150])
+    a = greedy_search(idx.state, cfg, q, k=5, l=16)
+    b = greedy_search(idx.state, cfg, q, k=5, l=16,
+                      distance_fn=make_kernel_distance_fn())
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)

@@ -175,3 +175,47 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card)")
     return torch.device("cuda")
+
+
+# A whole train step against the reference's jitted one (or the card's
+# against the CPU's): ``repro_torch.training.tolerance`` states the
+# tolerance, which ``chip_smoke.py`` phase 10 holds the card to as well.
+
+
+def _array(x):
+    """(numpy array, dtype name): a bfloat16 tensor or array widened to
+    float32, which holds it exactly."""
+    if isinstance(x, torch.Tensor):
+        name = str(x.dtype).split(".")[1]
+        return (x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy(), \
+            name
+    a = np.asarray(x)
+    return a, a.dtype.name
+
+
+def assert_train_step_close(got_state, got_out, want_state, want_out,
+                            where=""):
+    """``got_*`` the port's step (tensors), ``want_*`` the reference's
+    (arrays) or another run of the port's: the same tree, dtypes and
+    shapes; the loss, moments, parameters and step count within
+    ``repro_torch.training.tolerance.train_step_errors``."""
+    from repro_torch.training.optimizer import tree_map
+    from repro_torch.training.tolerance import flat, train_step_errors
+
+    got = {k: _array(x) for k, x in flat(got_state).items()}
+    want = {k: _array(x) for k, x in flat(want_state).items()}
+    assert list(got) == list(want), where
+    for key in want:
+        assert got[key][0].shape == want[key][0].shape and \
+            got[key][1] == want[key][1], (where, key, got[key][1],
+                                          want[key][1])
+
+    def tensor(x):
+        a, name = _array(x)
+        return torch.from_numpy(
+            np.array(a, dtype=np.float32 if name == "bfloat16" else None))
+
+    _, bad = train_step_errors(
+        tree_map(tensor, got_state), float(n(got_out["loss"])),
+        tree_map(tensor, want_state), float(n(want_out["loss"])))
+    assert not bad, (where, bad)
