@@ -136,7 +136,23 @@ Phases, any failure exits non-zero:
      ``repro_torch.training.tolerance``, as in the CPU tests); (c)
      ``adamw_update`` (float32 and bfloat16 moments) and
      ``compressed_psum`` over four per-device gradients on the card against
-     the CPU.
+     the CPU;
+ 11. the LM family (``repro_torch.models.transformer`` through
+     ``spec.make_step``): (a) the five archs at their published widths at
+     ``prefill_32k`` and ``decode_32k`` (S = 32,768): olmo-1b with its 16
+     layers (prefill B = 2 through the chunked attention, decode B = 8
+     over a 34.4 GB cache), the other four with their first 1-2 layers
+     (``LM_SERVE``): ms a step (CUDA events, warm median), tokens/s,
+     TFLOP/s of ``model_flops``, peak memory, every logit finite; on
+     olmo-1b whole, ``prefill`` of 30,720 tokens then ``decode_step``
+     against ``forward``'s row 30,720 over 32,768 tokens (B = 1), within
+     the tolerance the CPU tests pin (``LOGITS[bfloat16]``); (b) train_4k
+     for olmo-1b (16 layers, B = 4, remat) and qwen3-moe-30b-a3b (2 layers,
+     B = 8, accum_steps 8): the first step, then 5 on the same batch, the
+     loss finite and lower; (c) every reduced prefill, decode and train
+     step against its CPU copy; (d) ``repro_torch.launch.train --steps
+     30`` plain and ``--supervise --fail-at 12``: bitwise the same final
+     state; no kernel of ``csrc`` launched.
 
 Prints the kernels line, the card's name and power limit, and last the
 ``{"ok": true, "device": ...}`` line; the full record goes to
@@ -2237,7 +2253,7 @@ def launcher_agrees():
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
-    flags = ["--dim", "128", "--rate", "64", "--lifetime", "4",
+    flags = ["--dim", "128", "--rate", "32", "--lifetime", "4",
              "--ticks", "12"]
     tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
     runs = {}
@@ -3622,6 +3638,399 @@ def train_path(seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the LM family on the card
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("olmo-1b", "qwen2.5-32b", "qwen2-72b", "qwen3-moe-30b-a3b",
+            "qwen3-moe-235b-a22b")
+# the serving cells, at the published widths and S = 32,768: (layers kept,
+# prefill batch, decode batch).  olmo-1b keeps its 16 layers (2.35 GB of
+# bfloat16 params; the decode cache is 34.4 GB at B = 8); the other four
+# hold 61-470 GB of bfloat16 params whole and keep their embeddings and
+# the first layers only.  The batches are cut from 32 / 128: a prefill's
+# chunked attention reads every (2,048 x 2,048) tile pair below the
+# diagonal, ~4 ms each at olmo-1b's 16 heads and B = 2
+LM_SERVE = {
+    "olmo-1b": (16, 2, 8),
+    "qwen2.5-32b": (2, 1, 8),
+    "qwen2-72b": (1, 1, 8),
+    "qwen3-moe-30b-a3b": (2, 1, 8),
+    "qwen3-moe-235b-a22b": (1, 1, 8),
+}
+# the train cells at train_4k's widths (S = 4,096): (layers kept, batch);
+# olmo-1b whole with remat (18.8 GB of params, gradients and moments; at
+# B = 8 a step took 5.0 s and peaked at 71.8 GB), qwen3-moe-30b-a3b with 2
+# of its 48 layers (22.4 GB of float32 params and moments, 29.9 GB with the
+# gradient accumulator; 4 layers ran out of the card's memory and 3
+# peaked at 71.7 GB of its 79.2 GiB) and its accum_steps = 8
+# (microbatches of one sequence)
+LM_TRAIN = {"olmo-1b": (16, 4), "qwen3-moe-30b-a3b": (2, 8)}
+# warm steps timed per serving cell after the first (median): a prefill
+# (~9 s for olmo-1b), a decode
+LM_PREFILL_REPS, LM_DECODE_REPS = 1, 3
+# the decode-vs-forward check: prefill of the first LM_CHECK_AT tokens,
+# decode of the next, against forward's row LM_CHECK_AT over S = 32,768
+# tokens; the reference's chunked attention needs a multiple of its 2,048
+# chunk, which S - 1 is not, so the prefill stops one chunk short
+LM_CHECK_AT = 30720
+
+
+def lm_spec(name, layers, **dims):
+    """The registered spec with ``layers`` layers and ``dims`` replaced."""
+    from repro_torch.configs import get_arch
+
+    spec = get_arch(name)
+    return dataclasses.replace(spec, cfg=dataclasses.replace(
+        spec.cfg, n_layers=layers), **dims)
+
+
+def lm_timed(step, state, inputs, reps):
+    """The first step (host clock around it and a sync), then ``reps``
+    more timed by CUDA events.  Returns (first ms, the reps' ms, state,
+    the last output)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, out = step(state, inputs)
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t0) * 1e3
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, out = step(state, inputs)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return first, times, state, out
+
+
+def lm_rates(spec, shape, first, times, tokens):
+    import statistics
+
+    import torch
+
+    ms = statistics.median(times) if times else first
+    flops = spec.model_flops(shape)
+    return {"dims": dict(shape.dims), "first_ms": first, "ms": ms,
+            "ms_all": times, "tokens_per_s": tokens / ms * 1e3,
+            "model_flops": flops, "tflop_per_s": flops / ms / 1e9,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def lm_finite(where, *tensors):
+    import torch
+
+    check(all(bool(torch.isfinite(t).all()) for t in tensors),
+          f"phase 11: {where}: a value is not finite")
+
+
+def lm_serve_cell(name, dev, seed):
+    """11a: one arch's prefill_32k and decode_32k at its published widths
+    (``LM_SERVE``'s cuts): ms a step, tokens/s, TFLOP/s of
+    ``model_flops``, peak memory, every logit (and cache entry) finite.
+    The decode cache holds random entries and lengths near S, so each
+    step reads the whole cache; returns the cell's record, and for
+    olmo-1b its params for the decode-vs-forward check."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+
+    layers, pb, db = LM_SERVE[name]
+    spec = lm_spec(name, layers, prefill_batch=pb, decode_batch=db)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {"layers": layers,
+           "layers_published": get_arch(name).cfg.n_layers}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    shape = spec.shapes()["prefill_32k"]
+    state = spec.init_state(shape, dev, gen)
+    inputs = spec.make_inputs(shape, dev, gen)
+    out["param_bytes"] = state_bytes(state["params"])
+    first, times, state, res = lm_timed(spec.make_step(shape), state,
+                                        inputs, LM_PREFILL_REPS)
+    lm_finite(f"{name} prefill", res["logits"], res["cache"]["k"],
+              res["cache"]["v"])
+    out["prefill"] = lm_rates(spec, shape, first, times, pb * shape.dims[
+        "seq"])
+    out["prefill"]["cache_bytes"] = state_bytes(res["cache"])
+    del res, inputs
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    shape = spec.shapes()["decode_32k"]
+    s = shape.dims["seq"]
+    cache = tf.init_cache(spec.cfg, db, s, device=dev)
+    cache["k"].normal_(generator=gen)
+    cache["v"].normal_(generator=gen)
+    cache["len"] = (s - 8 - torch.arange(db, device=dev)).to(torch.int32)
+    state = {"params": state["params"], "cache": cache}
+    inputs = spec.make_inputs(shape, dev, gen)
+    first, times, state, res = lm_timed(spec.make_step(shape), state,
+                                        inputs, LM_DECODE_REPS)
+    out["decode"] = lm_rates(spec, shape, first, times, db)
+    out["decode"]["cache_bytes"] = state_bytes(state["cache"])
+    with torch.no_grad():
+        logits, _ = tf.decode_step(state["params"], spec.cfg, state["cache"],
+                                   inputs["tokens"])
+    lm_finite(f"{name} decode", logits)
+    check(res["next_token"].dtype == torch.int32
+          and bool(((res["next_token"] >= 0)
+                    & (res["next_token"] < spec.cfg.vocab)).all()),
+          f"phase 11: {name} decode: next_token out of the vocabulary")
+    params = state["params"]
+    del state, cache, inputs, res, logits
+    log(f"11a {name} ({layers} of {out['layers_published']} layers): "
+        f"prefill B={pb} {out['prefill']['ms']:.1f} ms "
+        f"({out['prefill']['tokens_per_s']:.0f} tokens/s, "
+        f"{out['prefill']['tflop_per_s']:.1f} TFLOP/s, peak "
+        f"{out['prefill']['peak_mem_bytes']}); decode B={db} "
+        f"{out['decode']['ms']:.2f} ms ({out['decode']['tokens_per_s']:.1f}"
+        f" tokens/s, peak {out['decode']['peak_mem_bytes']})")
+    return out, (spec, params) if name == "olmo-1b" else None
+
+
+def lm_decode_consistency(spec, params, dev, seed):
+    """11a: olmo-1b whole at S = 32,768, B = 1: ``prefill`` of the first
+    ``LM_CHECK_AT`` tokens (chunked attention), its cache copied into a
+    32,768-slot cache, ``decode_step`` of the next token, against
+    ``forward``'s row ``LM_CHECK_AT`` over all 32,768 tokens (chunked):
+    within ``LOGITS[bfloat16]``, the tolerance the CPU tests pin at small
+    size (``tests/test_torch_lm.py``)."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.tolerance import logits_errors
+
+    cfg, s, p = spec.cfg, spec.prefill_seq, LM_CHECK_AT
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    toks = torch.randint(0, cfg.vocab, (1, s), generator=gen, device=dev,
+                         dtype=torch.int32)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        full, _ = tf.forward(params, cfg, toks)
+        want = full[:, p].clone()
+        del full
+        _, cache = tf.prefill(params, cfg, toks[:, :p])
+        grown = tf.init_cache(cfg, 1, s, device=dev)
+        for f in ("k", "v"):
+            grown[f][:, :, :p] = cache[f]
+        grown["len"] = cache["len"]
+        del cache
+        got, _ = tf.decode_step(params, cfg, grown, toks[:, p])
+        del grown
+    torch.cuda.synchronize()
+    worst, share, ok = logits_errors(got, want, torch.bfloat16)
+    check(ok, f"phase 11: olmo-1b decode after a {p}-token prefill differs "
+          f"from forward's row {p} beyond LOGITS[bfloat16]: worst "
+          f"{worst} of the largest logit")
+    out = {"prefill_tokens": p, "seq": s, "batch": 1,
+           "max_abs_err_share": worst, "s": time.perf_counter() - t0}
+    log(f"11a olmo-1b prefill({p}) + decode equals forward({s})[:, {p}]: "
+        f"{out}")
+    return out
+
+
+def lm_train_cell(name, dev, seed):
+    """11b: one arch's train_4k at its widths (``LM_TRAIN``'s cuts): the
+    first step, then ``TRAIN_REPS`` more on the same batch timed by CUDA
+    events; the loss finite and lower after them; ms, TFLOP/s, peak."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    layers, b = LM_TRAIN[name]
+    spec = lm_spec(name, layers, train_batch=b)
+    shape = spec.shapes()["train_4k"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = spec.init_state(shape, dev, gen)
+    inputs = spec.make_inputs(shape, dev, gen)
+    out = {"layers": layers, "dims": dict(shape.dims),
+           "accum_steps": spec.accum_steps, "remat": spec.cfg.remat,
+           "remat_block": spec.cfg.remat_block,
+           "state_bytes": state_bytes(state)}
+    first, times, state, res = lm_timed(spec.make_step(shape), state,
+                                        inputs, 0)
+    losses = [float(res["loss"])]
+    step = spec.make_step(shape)
+    for _ in range(TRAIN_REPS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, res = step(state, inputs)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+        losses.append(float(res["loss"]))
+    ms = statistics.median(times)
+    flops = spec.model_flops(shape)
+    out.update(first_step_ms=first, ms=ms, ms_all=times, losses=losses,
+               model_flops=flops, tflop_per_s=flops / ms / 1e9,
+               tokens_per_s=b * shape.dims["seq"] / ms * 1e3,
+               peak_mem_bytes=torch.cuda.max_memory_allocated())
+    check(all(np.isfinite(losses)), f"phase 11: {name} train loss not "
+          f"finite: {losses}")
+    check(losses[-1] < losses[0], f"phase 11: {name} train loss did not "
+          f"fall over {TRAIN_REPS} steps: {losses}")
+    del state, inputs, res
+    log(f"11b {name} train ({layers} layers, B={b}, accum "
+        f"{spec.accum_steps}): {ms:.1f} ms a step, "
+        f"{out['tflop_per_s']:.1f} TFLOP/s, peak {out['peak_mem_bytes']}, "
+        f"loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+    return out
+
+
+def lm_reduced_on_cpu(dev, seed):
+    """11c: every reduced arch's prefill, decode and train step on the card
+    against the same step on a CPU copy: logits and caches within
+    ``LOGITS[bfloat16]`` (an MoE arch's row share), ``next_token`` equal
+    wherever the top-2 logit gap exceeds that tolerance, train states
+    within ``step_tolerance``.  Returns the largest error of each."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.optimizer import tree_map
+    from repro_torch.training.tolerance import (LOGITS, logits_errors,
+                                                step_tolerance,
+                                                train_step_errors)
+
+    out = {}
+    for name in LM_ARCHS:
+        red = get_arch(name).reduced()
+        moe = red.cfg.moe is not None
+        for shape in (x for x in red.shapes().values() if not x.skip):
+            where = f"{red.name} {shape.name}"
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            state = red.init_state(shape, dev, gen)
+            inputs = red.make_inputs(shape, dev, gen)
+            if shape.kind == "decode":
+                c = state["cache"]
+                c["k"].normal_(generator=gen)
+                c["v"].normal_(generator=gen)
+                c["len"] = torch.randint(1, c["k"].shape[2] - 1,
+                                         c["len"].shape, generator=gen,
+                                         device=dev, dtype=torch.int32)
+            cpu_state = tree_map(lambda x: x.cpu().clone(), state)
+            cpu_in = tree_map(lambda x: x.cpu().clone(), inputs)
+            if shape.kind == "decode":
+                with torch.no_grad():
+                    logits = [tf.decode_step(
+                        tree_map(torch.clone, st["params"]), red.cfg,
+                        tree_map(torch.clone, st["cache"]), x["tokens"])[0]
+                        for st, x in ((state, inputs), (cpu_state, cpu_in))]
+            step = red.make_step(shape)
+            got_state, got = step(state, inputs)
+            want_state, want = step(cpu_state, cpu_in)
+            if shape.kind == "train":
+                worst, bad = train_step_errors(
+                    got_state, float(got["loss"]), want_state,
+                    float(want["loss"]), red._opt_cfg(),
+                    step_tolerance(torch.bfloat16, moe, red.moment_dtype))
+                check(not bad, f"phase 11: {where} differs from the CPU's "
+                      f"beyond the bfloat16 step tolerance: {bad[:4]}")
+                out[where] = worst
+                continue
+            if shape.kind == "prefill":
+                pairs = {"logits": (got["logits"], want["logits"])}
+                cache, cpu_cache = got["cache"], want["cache"]
+            else:
+                pairs = {"logits": tuple(logits)}
+                cache, cpu_cache = got_state["cache"], want_state["cache"]
+                top2 = torch.topk(logits[1].float(), 2, dim=-1).values
+                sure = (top2[:, 0] - top2[:, 1]) > LOGITS[torch.bfloat16][
+                    0] * float(logits[1].abs().max())
+                check(torch.equal(got["next_token"].cpu()[sure],
+                                  want["next_token"][sure]),
+                      f"phase 11: {where} next_token differs from the CPU's "
+                      f"where the top-2 gap exceeds the tolerance")
+            pairs.update({f: (cache[f], cpu_cache[f]) for f in ("k", "v")})
+            check(torch.equal(cache["len"].cpu(), cpu_cache["len"]),
+                  f"phase 11: {where} cache len differs from the CPU's")
+            out[where] = {}
+            for key, (a, b) in pairs.items():
+                share_worst, share, ok = logits_errors(a, b, torch.bfloat16,
+                                                       moe)
+                check(ok, f"phase 11: {where} {key} differs from the CPU's "
+                      f"beyond LOGITS[bfloat16]: worst {share_worst}, rows "
+                      f"within {share}")
+                out[where][key] = share_worst
+    log(f"11c every reduced LM step equals its CPU copy: {out}")
+    return out
+
+
+def lm_launcher(dev):
+    """11d: ``repro_torch.launch.train --steps 30`` on the card, plain and
+    ``--supervise --fail-at 12`` (checkpoints every 10 steps in a
+    ``tempfile.mkdtemp()`` directory it removes): the same final
+    parameters and moments, bitwise."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import train as lt
+    from repro_torch.training.optimizer import tree_leaves
+
+    d = tempfile.mkdtemp()
+    t0 = time.perf_counter()
+    try:
+        plain = lt.main(["--steps", "30", "--device", str(dev)])
+        sup = lt.main(["--steps", "30", "--supervise", "--fail-at", "12",
+                       "--ckpt-dir", d, "--device", str(dev)])
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    a, b = tree_leaves(plain), tree_leaves(sup)
+    same = len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+    check(same, "phase 11: the launcher's supervised replay ends at other "
+          "parameters than the plain run")
+    return {"steps": 30, "fail_at": 12, "bitwise": True, "leaves": len(a),
+            "s": time.perf_counter() - t0}
+
+
+def lm_path(seed):
+    """Phase 11: the five LM archs' serving cells at their published widths
+    (11a, with the decode-vs-forward check on olmo-1b whole), two train
+    cells (11b), every reduced step against its CPU copy (11c), the
+    launcher's supervised replay (11d).  No kernel of ``csrc`` lies on
+    this path: the launches are counted to show none ran."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda", 0)
+    out = {"serve": {}, "train": {}, "s": {}}
+    ops.reset_launch_counts()
+    for name in LM_ARCHS:
+        t0 = time.perf_counter()
+        out["serve"][name], olmo = lm_serve_cell(name, dev, seed)
+        out["s"][f"serve {name}"] = time.perf_counter() - t0
+        if olmo is not None:
+            out["decode_vs_forward"] = lm_decode_consistency(*olmo, dev,
+                                                             seed)
+        del olmo
+    for name in LM_TRAIN:
+        t0 = time.perf_counter()
+        out["train"][name] = lm_train_cell(name, dev, seed)
+        out["s"][f"train {name}"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["cpu_agrees"] = lm_reduced_on_cpu(dev, seed)
+    out["s"]["cpu_agrees"] = time.perf_counter() - t0
+    out["launcher"] = lm_launcher(dev)
+    out["launches"] = ops.launch_counts()
+    check(not any(out["launches"].values()),
+          f"phase 11: a csrc kernel launched on the LM path: "
+          f"{out['launches']}")
+    return out
+
+
 def compare_runs(key, runs, kernels):
     """The cuda and torch runs of one stream: every state leaf and result
     identical, and ``kernels`` launched by the cuda run."""
@@ -3642,15 +4051,15 @@ def compare_runs(key, runs, kernels):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--live", type=int, default=2048,
+    ap.add_argument("--live", type=int, default=1536,
                     help="points linked into the f32 path's 10^6-slot table")
-    ap.add_argument("--runbook-n", type=int, default=1024,
+    ap.add_argument("--runbook-n", type=int, default=768,
                     help="points of the quantized path's sliding window "
                          "(at most half of them live)")
-    ap.add_argument("--policy-n", type=int, default=1024,
+    ap.add_argument("--policy-n", type=int, default=768,
                     help="points of the fresh and local paths' sliding "
                          "window")
-    ap.add_argument("--hnsw-n", type=int, default=512,
+    ap.add_argument("--hnsw-n", type=int, default=256,
                     help="points of the HNSW path's sliding window")
     args = ap.parse_args(argv)
 
@@ -3671,6 +4080,9 @@ def main(argv=None):
     smoke_t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bfloat16 products sum in float32, as the reference's (phase 11)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
     record = {"seed": args.seed}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3746,6 +4158,10 @@ def main(argv=None):
     record["train"] = train_path(args.seed)
     record["train"]["wall_s"] = time.perf_counter() - t0
     log(f"phase 10: {record['train']['wall_s']:.1f} s")
+    t0 = time.perf_counter()
+    record["lm"] = lm_path(args.seed)
+    record["lm"]["wall_s"] = time.perf_counter() - t0
+    log(f"phase 11: {record['lm']['wall_s']:.1f} s {record['lm']['s']}")
     record["total_s"] = time.perf_counter() - smoke_t0
     log(f"smoke: {record['total_s']:.1f} s")
 
@@ -3768,7 +4184,8 @@ def main(argv=None):
             "launches_by_path": {p: record[p]["launches"].get(name, 0)
                                  for p in ("main", "quant", "fresh", "local",
                                            "hnsw", "segments", "serving",
-                                           "sharded", "recsys", "train")},
+                                           "sharded", "recsys", "train",
+                                           "lm")},
             "max_abs_err": g.get("max_abs_err"),
             "grid_bitwise": name in grid,
             "ms": g.get("ms"), "public_ms": g.get("public_ms"),

@@ -2,13 +2,17 @@ from .ann import high_recall, low_recall, test_scale
 from .base import ArchSpec, ShapeSpec, pad_to
 from .registry import all_archs, get_arch, register
 
-# importing an arch module registers its SPEC; the LM archs wait for
-# their slice (ROADMAP Queue 1, item 2)
+# importing an arch module registers its SPEC
 from . import (  # noqa: F401
     din,
     dlrm_mlperf,
     dlrm_rm2,
     gcn_cora,
+    olmo_1b,
+    qwen2_5_32b,
+    qwen2_72b,
+    qwen3_moe_235b_a22b,
+    qwen3_moe_30b_a3b,
     two_tower_retrieval,
 )
 

@@ -1,26 +1,34 @@
 """Per-family ArchSpec implementations (``repro/configs/families.py``): the
-GNN family (GCN) and the recsys half (DLRM, DIN, two-tower).  The LM spec
-waits for its slice (ROADMAP Queue 1, item 2).
+LM family (dense GQA and MoE), the GNN family (GCN) and the recsys half
+(DLRM, DIN, two-tower).
 
 A ``train`` step is the reference's: the loss's value and gradients
-(``torch.autograd``, dense), then ``adamw_update`` with ``AdamWConfig()``,
-returning ``({"params", "opt"}, {"loss"})``; it updates the state's
-tensors in place.  Serve and retrieval steps run under ``torch.no_grad``.
+(``torch.autograd``, dense), then ``adamw_update`` (``AdamWConfig()``; an
+LM's from its ``moment_dtype`` / ``grad_clip``, with ``accum_steps``
+microbatches), returning ``({"params", "opt"}, {"loss"})``; it updates the
+state's tensors in place.  Serve, prefill, decode and retrieval steps run
+under ``torch.no_grad``; an LM's decode step writes its cache in place.
 ``make_step``'s ``n_shards`` stands for the reference's ``axes.all_size``:
-the block count of ``TwoTowerSpec``'s two-phase top-k.
+the block count of ``TwoTowerSpec``'s two-phase top-k (the LM ignores it).
+The LM's sharding rules (``LM_PARAM_RULES``, ``lm_attn_rules``,
+``_resolve``, the ``*_shardings`` methods) and ``_eff_accum``'s use of the
+mesh wait for ROADMAP Queue 1, item 4.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from ..core.types import resolve_device
 from ..models import gnn as gnn_mod
 from ..models import recsys as rec_mod
-from ..training.optimizer import AdamWConfig, adamw_init, adamw_update
-from ..training.train import value_and_grad
+from ..models import transformer as tf_mod
+from ..models.moe import MoEConfig
+from ..training.optimizer import (AdamWConfig, adamw_init, adamw_update,
+                                  tree_map)
+from ..training.train import TrainStepConfig, make_train_step, value_and_grad
 from .base import ArchSpec, ShapeSpec, generator_for, pad_to
 
 
@@ -63,6 +71,182 @@ def _labels(gen, b: int, device) -> torch.Tensor:
     if device.type == "meta":
         return torch.empty((b,), dtype=torch.float32, device=device)
     return (torch.rand((b,), generator=gen, device=device) < 0.25).float()
+
+
+# ===========================================================================
+# LM family (dense GQA + MoE)
+# ===========================================================================
+
+_LONG_SKIP = (
+    "pure full-attention arch: long_500k requires sub-quadratic "
+    "attention (see DESIGN.md §Arch-applicability); bonus best-effort "
+    "decode dry-run reported separately in EXPERIMENTS.md"
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class LMSpec(ArchSpec):
+    name: str
+    cfg: tf_mod.TransformerConfig
+    train_seq: int = 4096
+    train_batch: int = 256
+    prefill_seq: int = 32768
+    prefill_batch: int = 32
+    decode_seq: int = 32768
+    decode_batch: int = 128
+    long_seq: int = 524288
+    long_batch: int = 1
+    # microbatch gradient accumulation (memory lever for the big models)
+    accum_steps: int = 1
+    # the reference's hillclimb knobs, kept field for field; sequence
+    # parallelism, the MoE weights' fsdp dim and fsdp serving params are
+    # sharding choices (ROADMAP Queue 1, item 4)
+    seq_parallel: bool = False
+    moe_fsdp_dim: str = "d"
+    serve_param_fsdp: bool = True
+    # optimizer moment dtype ("bfloat16" for the largest models)
+    moment_dtype: str = "float32"
+    # None disables the global-norm clip pass
+    grad_clip: Optional[float] = 1.0
+    # cast fp32 master weights to bf16 before the layers run
+    bf16_weight_gather: bool = False
+    # all five assigned LM archs are pure full attention -> long_500k skipped
+    long_skip: Optional[str] = _LONG_SKIP
+    family: str = "lm"
+
+    def _opt_cfg(self):
+        return AdamWConfig(moment_dtype=self.moment_dtype,
+                           grad_clip=self.grad_clip)
+
+    def shapes(self) -> Dict[str, ShapeSpec]:
+        return {
+            "train_4k": ShapeSpec(
+                "train_4k", "train",
+                {"seq": self.train_seq, "batch": self.train_batch},
+            ),
+            "prefill_32k": ShapeSpec(
+                "prefill_32k", "prefill",
+                {"seq": self.prefill_seq, "batch": self.prefill_batch},
+            ),
+            "decode_32k": ShapeSpec(
+                "decode_32k", "decode",
+                {"seq": self.decode_seq, "batch": self.decode_batch},
+            ),
+            "long_500k": ShapeSpec(
+                "long_500k", "decode",
+                {"seq": self.long_seq, "batch": self.long_batch},
+                skip=self.long_skip,
+            ),
+        }
+
+    # -- state / inputs -----------------------------------------------------
+
+    def init_state(self, shape, device=None, generator=None):
+        """train: float32 params and AdamW's state from ``_opt_cfg()``;
+        prefill: bfloat16 params; decode: bfloat16 params and an empty
+        ``init_cache`` of (batch, seq)."""
+        gen = generator_for(device, generator)
+        if shape.kind == "train":
+            params = tf_mod.init_params(gen, self.cfg, torch.float32,
+                                        device=device)
+            return {"params": params,
+                    "opt": adamw_init(params, self._opt_cfg())}
+        params = tf_mod.init_params(gen, self.cfg, torch.bfloat16,
+                                    device=device)
+        if shape.kind == "decode":
+            cache = tf_mod.init_cache(self.cfg, shape.dims["batch"],
+                                      shape.dims["seq"], device=device)
+            return {"params": params, "cache": cache}
+        return {"params": params}
+
+    def make_inputs(self, shape, device=None, generator=None):
+        dev = resolve_device(device)
+        gen = generator_for(dev, generator)
+        b, s = shape.dims["batch"], shape.dims["seq"]
+        v = self.cfg.vocab
+        if shape.kind == "train":
+            return {"tokens": _randint(gen, v, (b, s), dev),
+                    "labels": _randint(gen, v, (b, s), dev)}
+        if shape.kind == "prefill":
+            return {"tokens": _randint(gen, v, (b, s), dev)}
+        return {"tokens": _randint(gen, v, (b,), dev)}
+
+    # -- step functions -------------------------------------------------------
+
+    def make_step(self, shape, n_shards: int = 1):
+        cfg = self.cfg
+        if shape.kind == "train":
+            cast_bf16 = self.bf16_weight_gather
+
+            def loss_of(p, batch):
+                if cast_bf16:
+                    p = tree_map(lambda w: w.to(torch.bfloat16)
+                                 if w.dtype == torch.float32 else w, p)
+                return tf_mod.loss_fn(p, cfg, batch)
+
+            step = make_train_step(loss_of, TrainStepConfig(
+                optimizer=self._opt_cfg(), accum_steps=self.accum_steps))
+
+            def train_step(state, inputs):
+                params, opt, out = step(state["params"], state["opt"],
+                                        inputs)
+                return {"params": params, "opt": opt}, out
+
+            return train_step
+        if shape.kind == "prefill":
+
+            @torch.no_grad()
+            def prefill_step(state, inputs):
+                logits, cache = tf_mod.prefill(state["params"], cfg,
+                                               inputs["tokens"])
+                return state, {"logits": logits, "cache": cache}
+
+            return prefill_step
+
+        @torch.no_grad()
+        def decode(state, inputs):
+            logits, cache = tf_mod.decode_step(
+                state["params"], cfg, state["cache"], inputs["tokens"])
+            next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            return ({"params": state["params"], "cache": cache},
+                    {"next_token": next_tok})
+
+        return decode
+
+    # -- roofline ------------------------------------------------------------
+
+    def model_flops(self, shape: ShapeSpec) -> float:
+        n = self.cfg.n_active_params()
+        b, s = shape.dims["batch"], shape.dims["seq"]
+        if shape.kind == "train":
+            return 6.0 * n * b * s
+        if shape.kind == "prefill":
+            return 2.0 * n * b * s
+        # decode: one token per sequence + KV-cache attention reads
+        attn = (
+            4.0 * b * s * self.cfg.n_layers * self.cfg.n_heads * self.cfg.hd
+        )
+        return 2.0 * n * b + attn
+
+    def reduced(self) -> "LMSpec":
+        cfg = self.cfg
+        moe = (
+            MoEConfig(n_experts=8, top_k=2, d_ff_expert=64)
+            if cfg.moe
+            else None
+        )
+        small = tf_mod.TransformerConfig(
+            name=cfg.name + "-reduced", n_layers=2, d_model=64, n_heads=4,
+            n_kv_heads=2, d_ff=128, vocab=256, head_dim=16,
+            qkv_bias=cfg.qkv_bias, norm=cfg.norm, moe=moe,
+            tie_embeddings=cfg.tie_embeddings, remat=False,
+        )
+        return dataclasses.replace(
+            self, name=self.name + "-reduced", cfg=small,
+            train_seq=32, train_batch=4, prefill_seq=64, prefill_batch=2,
+            decode_seq=64, decode_batch=4, long_seq=128, long_batch=1,
+            accum_steps=1, seq_parallel=False,
+        )
 
 
 # ===========================================================================
@@ -536,5 +720,5 @@ class TwoTowerSpec(ArchSpec):
         )
 
 
-__all__ = ["DINSpec", "DLRMSpec", "GNNSpec", "RECSYS_SHAPES",
+__all__ = ["DINSpec", "DLRMSpec", "GNNSpec", "LMSpec", "RECSYS_SHAPES",
            "TwoTowerSpec"]

@@ -29,6 +29,11 @@ reference's exact state can be fed to the port's train step and back.
 bfloat16 moments come in from the reference's ``bfloat16`` arrays and go
 out widened to float32, which holds them exactly (numpy has no bfloat16;
 the reference's update reads its moments in float32 either way).
+An LM's tree (``models/transformer.py::init_params``) travels the same
+way: its ``layers`` leaves stay stacked on their leading (L, ...) axis,
+an MoE's expert weights under ``layers/moe``, and an OLMo-style arch's
+zero-size ``final_norm`` as an empty tensor; bfloat16 serving params and
+caches come in as bfloat16.
 """
 from __future__ import annotations
 

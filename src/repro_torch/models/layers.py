@@ -1,9 +1,225 @@
-"""Shared layers (``repro/models/layers.py``).  Ported so far: the
-cross-entropy loss the GCN trains with; the transformer layers come with
-the LM family."""
+"""Shared transformer building blocks (``repro/models/layers.py``): pure
+functions over parameter trees, on PyTorch tensors.
+
+The arithmetic is the reference's, cast for cast:
+
+  * norms and RoPE compute in float32 and cast back to the input's dtype;
+    ``nonparam_layer_norm``'s variance is ``mean(square(x - mu))``, as
+    ``jnp.var`` computes it;
+  * attention's scores are float32 from (possibly bfloat16) operands (the
+    reference's ``preferred_element_type=float32``: exact products, float32
+    sums), the softmax is ``exp(x - max) / sum`` in float32, and the
+    weights are cast back to the operands' dtype before ``w @ v``;
+  * ``_chunked_attention`` is the reference's online softmax over
+    ``q_chunk`` x ``kv_chunk`` tiles with its guards for fully-masked
+    rows.  Under ``causal``, a key tile wholly after a query tile is
+    skipped: in the reference it leaves the running (max, denominator,
+    accumulator) as they were (p = 0, correction 1), so skipping it
+    changes no value; and the mask is applied only to the tiles that
+    straddle the diagonal (elsewhere it keeps every score).
+
+``constrain`` is the reference's sharding anchor, a no-op without a mesh;
+the port has no mesh yet (ROADMAP Queue 1, item 4), so it is the identity.
+"""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+_F32 = torch.float32
+
+
+def constrain(x, spec):
+    """The reference's ``with_sharding_constraint`` anchor: the identity."""
+    return x
+
+
+def rms_norm(x, weight, eps=1e-6):
+    xf = x.to(_F32)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * weight).to(x.dtype)
+
+
+def nonparam_layer_norm(x, eps=1e-5):
+    """OLMo-style non-parametric LayerNorm (no scale, no bias)."""
+    xf = x.to(_F32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    centered = xf - mu
+    var = torch.mean(centered * centered, dim=-1, keepdim=True)
+    return (centered * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def apply_norm(kind: str, x, weight=None):
+    if kind == "rmsnorm":
+        return rms_norm(x, weight)
+    return nonparam_layer_norm(x)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float = 1e6, device=None):
+    """``1 / theta ** (arange(0, hd, 2) / hd)`` as the jitted reference
+    computes it: XLA rewrites the quotient into ``theta ** -e``, a correctly
+    rounded float32 power (the float64 power, rounded, here)."""
+    exps = torch.arange(0, head_dim, 2, dtype=_F32, device=device) / head_dim
+    return torch.pow(theta, -exps.double()).to(_F32)
+
+
+def apply_rope(x, positions, theta: float = 1e6):
+    """x: (..., S, n_heads, head_dim); positions: (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)           # (hd/2,)
+    angles = positions[..., None].to(_F32) * freqs           # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(_F32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA) — plain for short sequences, chunked online-softmax for long
+# ---------------------------------------------------------------------------
+
+
+def _scale(hd: int) -> float:
+    """``1 / sqrt(hd)`` rounded as the reference rounds it: a float32
+    square root, then a float32 reciprocal."""
+    return float(1.0 / torch.sqrt(torch.tensor(float(hd), dtype=_F32)))
+
+
+def matmul_f32(a, b):
+    """``a @ b`` (batched, 3-D) with float32 products and sums: the
+    reference's ``preferred_element_type=float32``.  Products of bfloat16
+    operands are exact in float32, so on the card, outside autograd,
+    cuBLAS's bfloat16 product with a float32 result computes the same as
+    the float32 product of the widened operands, at a third of the time;
+    elsewhere the operands are widened."""
+    if (a.is_cuda and a.dtype == b.dtype == torch.bfloat16
+            and not (torch.is_grad_enabled()
+                     and (a.requires_grad or b.requires_grad))):
+        return torch.bmm(a, b, out_dtype=_F32)
+    return torch.bmm(a.to(_F32), b.to(_F32))
+
+
+def _scores(q, k, scale: float):
+    """q (B,S,KV,G,hd), k (B,T,KV,hd) -> float32 (B,KV,G,S,T) * scale."""
+    b, s, n_kv, g, hd = q.shape
+    t = k.shape[1]
+    qm = q.permute(0, 2, 3, 1, 4).reshape(b * n_kv, g * s, hd)
+    km = k.permute(0, 2, 3, 1).reshape(b * n_kv, hd, t)
+    return matmul_f32(qm, km).view(b, n_kv, g, s, t).mul_(scale)
+
+
+def _weighted_values(w, v, out_f32: bool):
+    """w (B,KV,G,S,T), v (B,T,KV,hd) -> (B,S,KV,G,hd): float32 sums, the
+    result float32 (``out_f32``) or in v's dtype."""
+    b, n_kv, g, s, t = w.shape
+    hd = v.shape[-1]
+    wm = w.reshape(b * n_kv, g * s, t)
+    vm = v.permute(0, 2, 1, 3).reshape(b * n_kv, t, hd)
+    out = matmul_f32(wm, vm) if out_f32 else torch.bmm(wm, vm)
+    return out.view(b, n_kv, g, s, hd).permute(0, 3, 1, 2, 4)
+
+
+def _softmax(scores):
+    """``jax.nn.softmax``: ``exp(x - max) / sum``, the max held constant
+    under autograd."""
+    m = torch.amax(scores, dim=-1, keepdim=True).detach()
+    u = torch.exp(scores - m)
+    return u / torch.sum(u, dim=-1, keepdim=True)
+
+
+def _plain_attention(q, k, v, *, causal, q_offset=0, kv_len=None):
+    """q: (B,S,KV,G,hd)  k,v: (B,T,KV,hd).  Returns (B,S,KV,G,hd)."""
+    s, t = q.shape[1], k.shape[1]
+    scores = _scores(q, k, _scale(q.shape[-1]))
+    if causal:
+        qpos = q_offset + torch.arange(s, device=q.device)[:, None]
+        kpos = torch.arange(t, device=q.device)[None, :]
+        scores = scores.masked_fill(kpos > qpos, float("-inf"))
+    if kv_len is not None:
+        valid = (torch.arange(t, device=q.device)[None, :]
+                 < kv_len[:, None])                           # (B, T)
+        scores = scores.masked_fill(~valid[:, None, None, None, :],
+                                    float("-inf"))
+    w = _softmax(scores).to(q.dtype)
+    return _weighted_values(w, v, out_f32=False)
+
+
+def _chunked_attention(q, k, v, *, causal, q_chunk=2048, kv_chunk=2048):
+    """Memory-efficient online-softmax attention: a loop over query chunks,
+    and within it over KV chunks carrying the running (max, denom,
+    accumulator).  Never materialises the (S, T) score matrix — the peak
+    intermediate is (B, KV, G, q_chunk, kv_chunk).  As the reference, keys
+    past the last whole KV chunk are not read, and S must be a multiple of
+    ``q_chunk``."""
+    b, s, n_kv, g, hd = q.shape
+    t = k.shape[1]
+    nq, nk = s // q_chunk, t // kv_chunk
+    if nq * q_chunk != s:
+        raise ValueError(f"chunked attention over S = {s} queries needs a "
+                         f"multiple of q_chunk = {q_chunk}")
+    scale = _scale(hd)
+    inf = float("-inf")
+    chunks = []
+    for qi in range(nq):
+        qc = q[:, qi * q_chunk:(qi + 1) * q_chunk]
+        q_pos = qi * q_chunk + torch.arange(q_chunk, device=q.device)
+        m = torch.full((b, n_kv, g, q_chunk), inf, dtype=_F32,
+                       device=q.device)
+        l = torch.zeros((b, n_kv, g, q_chunk), dtype=_F32, device=q.device)
+        acc = torch.zeros((b, q_chunk, n_kv, g, hd), dtype=_F32,
+                          device=q.device)
+        for ki in range(nk):
+            k_lo = ki * kv_chunk
+            if causal and k_lo > qi * q_chunk + q_chunk - 1:
+                continue          # every key after every query: p = 0
+            kc = k[:, k_lo:k_lo + kv_chunk]
+            vc = v[:, k_lo:k_lo + kv_chunk]
+            sc = _scores(qc, kc, scale)
+            if causal and k_lo + kv_chunk - 1 > qi * q_chunk:
+                k_pos = k_lo + torch.arange(kv_chunk, device=q.device)
+                sc = sc.masked_fill(k_pos[None, :] > q_pos[:, None], inf)
+            m_new = torch.maximum(m, torch.amax(sc, dim=-1))
+            # guard fully-masked rows (m_new = -inf)
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.where(torch.isfinite(sc),
+                            torch.exp(sc - m_safe[..., None]), 0.0)
+            del sc
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+            l = corr * l + torch.sum(p, dim=-1)
+            pv = _weighted_values(p.to(q.dtype), vc, out_f32=True)
+            del p
+            acc = corr.permute(0, 3, 1, 2)[..., None] * acc + pv
+            m = m_new
+        denom = torch.clamp(l, min=1e-30).permute(0, 3, 1, 2)[..., None]
+        chunks.append((acc / denom).to(q.dtype))
+    return torch.cat(chunks, dim=1)
+
+
+def gqa_attention(q, k, v, *, causal=True, q_offset=0, kv_len=None,
+                  chunked_threshold=8192):
+    """Dispatch between plain and chunked attention by sequence length."""
+    s, t = q.shape[1], k.shape[1]
+    if s == t and s > chunked_threshold and kv_len is None:
+        return _chunked_attention(q, k, v, causal=causal)
+    return _plain_attention(q, k, v, causal=causal, q_offset=q_offset,
+                            kv_len=kv_len)
+
+
+# ---------------------------------------------------------------------------
+# MLPs and the loss
+# ---------------------------------------------------------------------------
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    h = F.silu(x @ w_gate) * (x @ w_up)
+    return h @ w_down
 
 
 def cross_entropy_loss(logits, labels, ignore_id: int = -1):
@@ -12,7 +228,7 @@ def cross_entropy_loss(logits, labels, ignore_id: int = -1):
     As the reference's ``take_along_axis``, a label at or past V reads a
     NaN logit; a negative label reads class 0, and ``ignore_id`` is left
     out of the mean."""
-    logits = logits.to(torch.float32)
+    logits = logits.to(_F32)
     lse = torch.logsumexp(logits, dim=-1)
     v = logits.shape[-1]
     lab = torch.clamp(labels.long(), min=0)
@@ -23,4 +239,6 @@ def cross_entropy_loss(logits, labels, ignore_id: int = -1):
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
 
 
-__all__ = ["cross_entropy_loss"]
+__all__ = ["apply_norm", "apply_rope", "constrain", "cross_entropy_loss",
+           "gqa_attention", "matmul_f32", "nonparam_layer_norm",
+           "rms_norm", "rope_freqs", "swiglu"]

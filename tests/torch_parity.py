@@ -194,13 +194,15 @@ def _array(x):
 
 
 def assert_train_step_close(got_state, got_out, want_state, want_out,
-                            where=""):
+                            where="", tol=None):
     """``got_*`` the port's step (tensors), ``want_*`` the reference's
     (arrays) or another run of the port's: the same tree, dtypes and
     shapes; the loss, moments, parameters and step count within
-    ``repro_torch.training.tolerance.train_step_errors``."""
+    ``repro_torch.training.tolerance.train_step_errors`` (``tol``, default
+    ``F32_STEP``)."""
     from repro_torch.training.optimizer import tree_map
-    from repro_torch.training.tolerance import flat, train_step_errors
+    from repro_torch.training.tolerance import (F32_STEP, flat,
+                                                train_step_errors)
 
     got = {k: _array(x) for k, x in flat(got_state).items()}
     want = {k: _array(x) for k, x in flat(want_state).items()}
@@ -217,5 +219,24 @@ def assert_train_step_close(got_state, got_out, want_state, want_out,
 
     _, bad = train_step_errors(
         tree_map(tensor, got_state), float(n(got_out["loss"])),
-        tree_map(tensor, want_state), float(n(want_out["loss"])))
+        tree_map(tensor, want_state), float(n(want_out["loss"])),
+        tol=tol or F32_STEP)
     assert not bad, (where, bad)
+
+
+# LM logits (the port's against the reference's, or the card's against the
+# CPU's): ``repro_torch.training.tolerance.logits_errors`` states the
+# tolerance per compute dtype, which ``chip_smoke.py`` phase 11 holds the
+# card to as well.
+
+
+def assert_logits_close(got, want, dtype=torch.float32, moe=False,
+                        where=""):
+    """``got`` a tensor, ``want`` an array or tensor of one shape, within
+    ``LOGITS[dtype]`` (an MoE arch at bfloat16: on
+    ``MOE_BF16_ROW_SHARE`` of the rows)."""
+    from repro_torch.training.tolerance import logits_errors
+
+    want = torch.from_numpy(np.asarray(_array(want)[0], dtype=np.float32))
+    worst, share, ok = logits_errors(got, want, dtype, moe)
+    assert got.shape == want.shape and ok, (where, worst, share)
