@@ -152,7 +152,22 @@ Phases, any failure exits non-zero:
      loss finite and lower; (c) every reduced prefill, decode and train
      step against its CPU copy; (d) ``repro_torch.launch.train --steps
      30`` plain and ``--supervise --fail-at 12``: bitwise the same final
-     state; no kernel of ``csrc`` launched.
+     state; no kernel of ``csrc`` launched;
+ 12. the mesh (``repro_torch.launch.mesh``, the ``*_shardings`` rules,
+     ``make_step(shape, axes)``): (a) under a one-rank NCCL group and a 1x1
+     ("data", "model") mesh on the card, olmo-1b's train_4k (phase 11b's
+     cut), two-tower's retrieval_cand (10^6 candidates, two-phase top-k)
+     and dlrm-rm2's serve_p99 with their state and inputs placed as
+     DTensors by ``state_shardings`` / ``input_shardings``: bitwise equal
+     to the same step on plain tensors, ms a step of each; the train
+     cell's bytes and FLOPs (``FlopCounterMode``) counted; (b)
+     ``Supervisor.run(shardings=...)`` over olmo-1b's reduced train step
+     with an injected failure: restored onto the placements, bitwise at
+     the uninterrupted run's end; (c) host-side,
+     ``launch.dryrun.run_cell`` for two-tower's retrieval_cand at full
+     size on a fake 16x16 mesh (``ok``), and for (a)'s train cell on a
+     fake 1x1 mesh, whose argument bytes and FLOPs equal the card's
+     exactly; no kernel of ``csrc`` launched.
 
 Prints the kernels line, the card's name and power limit, and last the
 ``{"ok": true, "device": ...}`` line; the full record goes to
@@ -4031,6 +4046,335 @@ def lm_path(seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the mesh, the sharding rules and the dry run
+# ---------------------------------------------------------------------------
+
+# the cells stepped under the card's 1x1 mesh: (arch, shape, layers kept,
+# spec fields replaced, axis sizes the step is built for); olmo-1b's train
+# cell at phase 11b's cut (16 layers, B = 4), two-tower's retrieval over
+# 10^6 candidates with the two-phase top-k over ``axes.all_size`` blocks:
+# the step built for a (2, 2) mesh's axes (4 blocks; the card's mesh has
+# one device, so every leaf is whole), and held to the one top-k too
+MESH_CELLS = (
+    ("olmo-1b", "train_4k", 16, {"train_batch": 4}, None),
+    ("two-tower-retrieval", "retrieval_cand", None,
+     {"two_phase_topk": True}, {"dp_size": 2, "model_size": 2}),
+    ("dlrm-rm2", "serve_p99", None, {}, None),
+)
+MESH_REPS = 2
+# the full-size cell of the dry run on the fake 16x16 mesh (host-side):
+# two-tower's retrieval_cand, the paper's serving scenario.  The card's
+# PyTorch (2.11) lacks DTensor strategies that the LM and train cells
+# need (an embedding gradient's index_put, index_add over a split index,
+# a flatten of a sequence-split cache), which PyTorch 2.13 has: the full
+# sweep runs on a host with 2.13 (PERF.md)
+MESH_DRY_CELL = ("two-tower-retrieval", "retrieval_cand")
+
+
+def host_available_bytes():
+    """MemAvailable of the host, from /proc/meminfo (None elsewhere)."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        return None
+    return None
+
+
+def mesh_spec(name, layers, fields):
+    from repro_torch.configs import get_arch
+
+    spec = get_arch(name)
+    if layers is not None:
+        spec = dataclasses.replace(spec, cfg=dataclasses.replace(
+            spec.cfg, n_layers=layers))
+    return dataclasses.replace(spec, **fields)
+
+
+def local_tree(tree):
+    from repro_torch.models.layers import is_dtensor
+    from repro_torch.training.optimizer import tree_map
+
+    return tree_map(lambda x: x.to_local() if is_dtensor(x) else x, tree)
+
+
+def timed_step(step, state, inputs, reps):
+    """``reps`` steps timed by CUDA events (a train step updates its state
+    in place, so each runs on the last one's state): (median ms, all ms,
+    state)."""
+    import statistics
+
+    import torch
+
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, _ = step(state, inputs)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times), times, state
+
+
+def mesh_cell(cell, mesh, dev, seed):
+    """12a: one cell's step with its state and inputs placed by
+    ``state_shardings`` / ``input_shardings`` on the card's 1x1 mesh,
+    against the same step on plain tensors from the same seed: every
+    leaf of the first step's state and outputs bitwise equal; then ms a
+    step of each (CUDA events, median of ``MESH_REPS``, warm).  For the
+    train cell also the state's and inputs' bytes on the card and one more
+    plain step under ``FlopCounterMode``, which 12c's dry run must
+    predict."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import axes_of
+    from repro_torch.launch import mesh as lm
+    from repro_torch.models.layers import is_dtensor
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+
+    name, shape_name, layers, fields, sizes = cell
+    spec = mesh_spec(name, layers, fields)
+    shape = spec.shapes()[shape_name]
+    axes = axes_of(mesh)
+    if sizes:
+        # the step built for a larger mesh's axes; the leaves are placed
+        # on the card's mesh
+        axes = dataclasses.replace(axes, **sizes)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    state = spec.init_state(shape, dev, gen)
+    inputs = spec.make_inputs(shape, dev, gen)
+    train = shape.kind == "train"
+    # a train step updates its state in place: the mesh gets a copy
+    m_state = lm.place(tree_map(torch.clone, state) if train else state,
+                       spec.state_shardings(shape, axes), mesh)
+    m_inputs = lm.place(inputs, spec.input_shardings(shape, axes), mesh)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0, "dims": dict(shape.dims),
+           "layers": layers, "fields": fields}
+    plain_step = spec.make_step(shape)
+    mesh_step = spec.make_step(shape, axes)
+    p_state, p_out = plain_step(state, inputs)
+    m_state, m_out = mesh_step(m_state, m_inputs)
+    torch.cuda.synchronize()
+    check(all(is_dtensor(x) for x in tree_leaves(m_state)),
+          f"phase 12a: {name} {shape_name}: the mesh step's state is not "
+          f"DTensors")
+    a = tree_leaves((p_state, p_out))
+    b = tree_leaves(local_tree((m_state, m_out)))
+    same = len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+    check(same, f"phase 12a: {name} {shape_name}: the mesh step differs "
+          f"from the plain step")
+    out.update(bitwise=True, leaves=len(a), all_size=axes.all_size)
+    if shape.kind == "retrieval" and axes.all_size > 1:
+        # the two-phase top-k against the one top-k of the step built
+        # without axes: the same scores, and the same ids wherever a
+        # score is not tied within its row
+        _, one = spec.make_step(shape)(state, inputs)
+        got = local_tree(m_out)
+        s1, i1 = one["scores"], one["ids"]
+        tied = torch.zeros_like(s1, dtype=torch.bool)
+        eq = s1[:, 1:] == s1[:, :-1]
+        tied[:, 1:] |= eq
+        tied[:, :-1] |= eq
+        check(torch.equal(got["scores"], s1) and torch.equal(
+            got["ids"][~tied], i1[~tied]),
+              f"phase 12a: {name} {shape_name}: the two-phase top-k over "
+              f"{axes.all_size} blocks differs from the one top-k")
+        out.update(blocks=axes.all_size, equal_to_one_topk=True,
+                   tied_scores=int(tied.sum()))
+        del one, got
+    del p_out, m_out, a, b
+    torch.cuda.reset_peak_memory_stats()
+    out["plain_ms"], out["plain_ms_all"], p_state = timed_step(
+        plain_step, p_state, inputs, MESH_REPS)
+    out["plain_peak_bytes"] = torch.cuda.max_memory_allocated()
+    if train:
+        # the plain state goes before the mesh steps (two train states
+        # and a step's activations do not fit together)
+        out["card_bytes"] = state_bytes(p_state) + state_bytes(inputs)
+        with FlopCounterMode(display=False) as fc:
+            plain_step(p_state, inputs)
+        state = p_state = None
+        torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out["mesh_ms"], out["mesh_ms_all"], m_state = timed_step(
+        mesh_step, m_state, m_inputs, MESH_REPS)
+    out["mesh_peak_bytes"] = torch.cuda.max_memory_allocated()
+    if train:
+        out["flop_counter_flops"] = fc.get_total_flops()
+    log(f"12a {name} {shape_name} on the 1x1 mesh: bitwise equal to the "
+        f"plain step ({out['leaves']} leaves); {out['mesh_ms']:.2f} ms a "
+        f"step on the mesh, {out['plain_ms']:.2f} plain; peak "
+        f"{out['mesh_peak_bytes']} / {out['plain_peak_bytes']} bytes")
+    del state, inputs, m_state, m_inputs
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_supervised(mesh, dev, seed, n_steps=6, fail_at=4):
+    """12b: ``Supervisor.run(shardings=...)`` over olmo-1b's reduced train
+    step on the card's 1x1 mesh, a failure injected at step ``fail_at``
+    and checkpoints every 2 steps (in a ``tempfile.mkdtemp()`` directory
+    it removes): the state restored after the failure is DTensors on the
+    specs' placements, and the run ends bitwise at the uninterrupted
+    run's state."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import axes_of, get_arch
+    from repro_torch.configs.base import placements
+    from repro_torch.ft import Supervisor
+    from repro_torch.launch import mesh as lm
+    from repro_torch.models.layers import is_dtensor
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+
+    spec = get_arch("olmo-1b").reduced()
+    shape = spec.shapes()["train_4k"]
+    axes = axes_of(mesh)
+    specs = spec.state_shardings(shape, axes)
+    step = spec.make_step(shape, axes)
+    init = spec.init_state(shape, dev,
+                           torch.Generator(device=dev).manual_seed(seed))
+
+    def batch(i):
+        gen = torch.Generator(device=dev).manual_seed(seed + 100 + i)
+        return lm.place(spec.make_inputs(shape, dev, gen),
+                        spec.input_shardings(shape, axes), mesh)
+
+    def placed():
+        return lm.place(tree_map(torch.clone, init), specs, mesh)
+
+    seen = []
+
+    def step_fn(st, i):
+        seen.append(st)
+        return step(st, batch(i))[0]
+
+    plain = placed()
+    for i in range(n_steps):
+        plain = step(plain, batch(i))[0]
+    d = tempfile.mkdtemp()
+    t0 = time.perf_counter()
+    try:
+        sup = Supervisor(CheckpointManager(d), checkpoint_every=2)
+        final, info = sup.run(placed(), step_fn, n_steps,
+                              shardings=lm.shardify(mesh, specs),
+                              fail_at={fail_at: 1})
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    check(info == {"restarts": 1, "final_step": n_steps},
+          f"phase 12b: the supervisor reports {info}")
+    # step_fn's calls: steps 0 .. fail_at - 1, then the restored state
+    restored = seen[fail_at]
+    on_placements = all(
+        is_dtensor(x) and tuple(x.placements) == placements(sp, mesh)
+        for x, sp in zip(tree_leaves(restored), tree_leaves(specs)))
+    check(on_placements, "phase 12b: the restored state is not DTensors on "
+          "the specs' placements")
+    a, b = tree_leaves(local_tree(plain)), tree_leaves(local_tree(final))
+    same = len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+    check(same, "phase 12b: the supervised run ends at other parameters "
+          "than the uninterrupted run")
+    out = {"steps": n_steps, "fail_at": fail_at, "restarts": 1,
+           "bitwise": True, "restored_on_placements": True,
+           "leaves": len(a), "s": time.perf_counter() - t0}
+    log(f"12b supervised restore onto the 1x1 mesh: {out}")
+    return out
+
+
+def mesh_dry_run(card):
+    """12c, host-side: ``dryrun.run_cell`` for ``MESH_DRY_CELL`` at full
+    size on the fake 16x16 mesh (``ok``), and for 12a's olmo-1b train cell
+    at its cut on a fake 1x1 mesh, whose per-device argument bytes and
+    FLOPs must equal what the card counted in 12a, exactly."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import run_cell
+
+    name, shape_name = MESH_DRY_CELL
+    spec = get_arch(name)
+    full = run_cell(spec, spec.shapes()[shape_name], multi_pod=False)
+    check(full["status"] == "ok", f"phase 12c: the dry run of {name} "
+          f"{shape_name} on 16x16: {full.get('error')}")
+    arch, shape_name, layers, fields, _ = MESH_CELLS[0]
+    cut = mesh_spec(arch, layers, fields)
+    small = run_cell(cut, cut.shapes()[shape_name], mesh_shape=(1, 1),
+                     axis_names=("data", "model"))
+    check(small["status"] == "ok", f"phase 12c: the dry run of {arch} "
+          f"{shape_name} on 1x1: {small.get('error')}")
+    args = small["memory"]["argument_bytes"]
+    flops = small["roofline"]["flops_per_device"]
+    check(args == card["card_bytes"], f"phase 12c: predicted argument "
+          f"bytes {args}, the card's {card['card_bytes']}")
+    check(flops == card["flop_counter_flops"],
+          f"phase 12c: predicted {flops} FLOPs, the card's "
+          f"{card['flop_counter_flops']}")
+    keep = ("status", "mesh", "n_devices", "step_s", "memory",
+            "collectives", "roofline")
+    out = {"full": {"cell": f"{name} {shape_name}",
+                    **{k: full[k] for k in keep}},
+           "cut_1x1": {"cell": f"{arch} {shape_name} ({layers} layers)",
+                       **{k: small[k] for k in keep}},
+           "argument_bytes_equal": True, "flops_equal": True}
+    log(f"12c dry run: {name} {MESH_DRY_CELL[1]} on 16x16 ok in "
+        f"{full['step_s']} s host, "
+        f"{full['memory']['peak_bytes_per_device']} bytes a device, "
+        f"dominant {full['roofline']['dominant']}; the 1x1 cut predicts the "
+        f"card's {args} argument bytes and {flops} FLOPs")
+    return out
+
+
+def mesh_path(seed):
+    """Phase 12: the cells of ``MESH_CELLS`` under a one-rank NCCL group
+    and a 1x1 ("data", "model") mesh on the card, against their plain
+    steps (12a); a supervised restore onto the mesh (12b); the dry run on
+    the host (12c).  No kernel of ``csrc`` lies on this path: the
+    launches are counted to show none ran."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as lm
+
+    dev = torch.device("cuda", 0)
+    # the earlier phases' cached blocks go back before NCCL allocates
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    out = {"cells": {}, "s": {}, "card_free_bytes_at_start": free,
+           "host_available_bytes_at_start": host_available_bytes()}
+    log(f"phase 12: {free} of {total} card bytes free, "
+        f"{out['host_available_bytes_at_start']} host bytes available")
+    ops.reset_launch_counts()
+    with lm.process_group(1, device=dev):
+        mesh = lm.make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        for cell in MESH_CELLS:
+            t0 = time.perf_counter()
+            key = f"{cell[0]} {cell[1]}"
+            out["cells"][key] = mesh_cell(cell, mesh, dev, seed)
+            out["s"][key] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["supervised"] = mesh_supervised(mesh, dev, seed)
+        out["s"]["supervised"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["dry_run"] = mesh_dry_run(out["cells"]["olmo-1b train_4k"])
+    out["s"]["dry_run"] = time.perf_counter() - t0
+    out["launches"] = ops.launch_counts()
+    check(not any(out["launches"].values()),
+          f"phase 12: a csrc kernel launched on the mesh path: "
+          f"{out['launches']}")
+    return out
+
+
 def compare_runs(key, runs, kernels):
     """The cuda and torch runs of one stream: every state leaf and result
     identical, and ``kernels`` launched by the cuda run."""
@@ -4056,7 +4400,7 @@ def main(argv=None):
     ap.add_argument("--runbook-n", type=int, default=768,
                     help="points of the quantized path's sliding window "
                          "(at most half of them live)")
-    ap.add_argument("--policy-n", type=int, default=768,
+    ap.add_argument("--policy-n", type=int, default=640,
                     help="points of the fresh and local paths' sliding "
                          "window")
     ap.add_argument("--hnsw-n", type=int, default=256,
@@ -4162,6 +4506,10 @@ def main(argv=None):
     record["lm"] = lm_path(args.seed)
     record["lm"]["wall_s"] = time.perf_counter() - t0
     log(f"phase 11: {record['lm']['wall_s']:.1f} s {record['lm']['s']}")
+    t0 = time.perf_counter()
+    record["mesh"] = mesh_path(args.seed)
+    record["mesh"]["wall_s"] = time.perf_counter() - t0
+    log(f"phase 12: {record['mesh']['wall_s']:.1f} s {record['mesh']['s']}")
     record["total_s"] = time.perf_counter() - smoke_t0
     log(f"smoke: {record['total_s']:.1f} s")
 
@@ -4185,7 +4533,7 @@ def main(argv=None):
                                  for p in ("main", "quant", "fresh", "local",
                                            "hnsw", "segments", "serving",
                                            "sharded", "recsys", "train",
-                                           "lm")},
+                                           "lm", "mesh")},
             "max_abs_err": g.get("max_abs_err"),
             "grid_bitwise": name in grid,
             "ms": g.get("ms"), "public_ms": g.get("public_ms"),

@@ -102,6 +102,10 @@ def _treedef(tree) -> str:
 
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
 
@@ -269,8 +273,16 @@ class CheckpointManager:
         return step, _unflatten(like, flat), manifest["extra"]
 
 
-def restore_onto(tree_np: Any, device=None):
-    """A numpy tree as tensors on ``device`` (default: the card)."""
+def restore_onto(tree_np: Any, shardings: Any = None, device=None):
+    """Materialise a numpy tree as tensors: with ``shardings`` (a tree of
+    ``launch.mesh.NamedSharding`` of the same structure, possibly on
+    another mesh than the one that wrote it: elastic rescale) as DTensors
+    on their placements, on the mesh's device type; else on ``device``
+    (default: the card)."""
+    if shardings is not None:
+        from ..launch.mesh import place_named
+
+        return place_named(tree_np, shardings)
     dev = torch.device("cuda" if device is None else device)
     flat = {k: torch.from_numpy(np.array(v, copy=True)).to(dev)
             for k, v in _flatten(tree_np).items()}

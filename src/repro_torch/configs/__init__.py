@@ -1,5 +1,6 @@
 from .ann import high_recall, low_recall, test_scale
-from .base import ArchSpec, ShapeSpec, pad_to
+from .base import (ArchSpec, MeshAxes, P, PartitionSpec, ShapeSpec, axes_of,
+                   map_rules, pad_to, placements, shard_shape)
 from .registry import all_archs, get_arch, register
 
 # importing an arch module registers its SPEC
@@ -16,5 +17,7 @@ from . import (  # noqa: F401
     two_tower_retrieval,
 )
 
-__all__ = ["ArchSpec", "ShapeSpec", "all_archs", "get_arch", "high_recall",
-           "low_recall", "pad_to", "register", "test_scale"]
+__all__ = ["ArchSpec", "MeshAxes", "P", "PartitionSpec", "ShapeSpec",
+           "all_archs", "axes_of", "get_arch", "high_recall", "low_recall",
+           "map_rules", "pad_to", "placements", "register", "shard_shape",
+           "test_scale"]

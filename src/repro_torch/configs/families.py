@@ -8,15 +8,21 @@ LM's from its ``moment_dtype`` / ``grad_clip``, with ``accum_steps``
 microbatches), returning ``({"params", "opt"}, {"loss"})``; it updates the
 state's tensors in place.  Serve, prefill, decode and retrieval steps run
 under ``torch.no_grad``; an LM's decode step writes its cache in place.
-``make_step``'s ``n_shards`` stands for the reference's ``axes.all_size``:
-the block count of ``TwoTowerSpec``'s two-phase top-k (the LM ignores it).
-The LM's sharding rules (``LM_PARAM_RULES``, ``lm_attn_rules``,
-``_resolve``, the ``*_shardings`` methods) and ``_eff_accum``'s use of the
-mesh wait for ROADMAP Queue 1, item 4.
+
+The ``*_shardings`` methods give the reference's ``PartitionSpec`` trees
+(``configs.base.PartitionSpec``), path for path.  ``make_step(shape,
+axes)`` changes what the reference's does: the LM's activation anchors
+(``TransformerConfig.act``, honoured by ``models.layers.constrain`` on
+DTensors), ``_eff_accum``'s microbatch count, and two-tower's two-phase
+top-k block count ``axes.all_size``.  With ``axes`` the step runs under
+``implicit_replication``: the plain tensors it makes (positions, masks,
+constants) count as replicated beside the DTensor state, as constants do
+in a GSPMD program.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -29,7 +35,29 @@ from ..models.moe import MoEConfig
 from ..training.optimizer import (AdamWConfig, adamw_init, adamw_update,
                                   tree_map)
 from ..training.train import TrainStepConfig, make_train_step, value_and_grad
-from .base import ArchSpec, ShapeSpec, generator_for, pad_to
+from .base import (ArchSpec, MeshAxes, P, ShapeSpec, generator_for,
+                   map_rules, pad_to, replicated)
+
+
+def _on_mesh(step, axes):
+    """``step`` itself without a mesh; with one, ``step`` under DTensor's
+    ``implicit_replication``."""
+    if axes is None:
+        return step
+
+    @functools.wraps(step)
+    def run(state, inputs):
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+
+        with implicit_replication():
+            return step(state, inputs)
+
+    return run
+
+
+def _opt_specs(params):
+    return {"m": params, "v": params, "step": P()}
 
 
 def _state(params, shape: ShapeSpec) -> dict:
@@ -77,6 +105,81 @@ def _labels(gen, b: int, device) -> torch.Tensor:
 # LM family (dense GQA + MoE)
 # ===========================================================================
 
+LM_PARAM_RULES = {
+    "embed": P("model", "fsdp"),
+    "lm_head": P("fsdp", "model"),
+    "final_norm": P(None),
+    "layers/attn_norm": P(None, None),
+    "layers/mlp_norm": P(None, None),
+    "layers/w_gate": P(None, "fsdp", "model"),
+    "layers/w_up": P(None, "fsdp", "model"),
+    "layers/w_down": P(None, "model", "fsdp"),
+    "layers/moe/router": P(None, "fsdp", "model"),
+    "layers/moe/w_gate": P(None, "model", "fsdp", None),
+    "layers/moe/w_up": P(None, "model", "fsdp", None),
+    "layers/moe/w_down": P(None, "model", None, "fsdp"),
+}
+
+
+def lm_attn_rules(n_heads: int, n_kv_heads: int, tp: int):
+    """Attention param sharding chosen by divisibility (see
+    TransformerConfig.attn_shard):
+      kv-head axis when kv % tp == 0; else q-head axis with KV projections
+      sharded on head_dim (Megatron GQA: KV effectively replicated across
+      the tp groups that share a KV head); else head_dim everywhere."""
+    if n_kv_heads % tp == 0:
+        mode = "kv"
+        rules = {
+            "layers/wq": P(None, "fsdp", "model", None),
+            "layers/wk": P(None, "fsdp", "model", None),
+            "layers/wv": P(None, "fsdp", "model", None),
+            "layers/wo": P(None, "model", None, "fsdp"),
+            "layers/bq": P(None, "model", None),
+            "layers/bk": P(None, "model", None),
+            "layers/bv": P(None, "model", None),
+        }
+    elif n_heads % tp == 0:
+        mode = "q"
+        rules = {
+            "layers/wq": P(None, "fsdp", "model", None),
+            "layers/wk": P(None, "fsdp", None, "model"),
+            "layers/wv": P(None, "fsdp", None, "model"),
+            "layers/wo": P(None, "model", None, "fsdp"),
+            "layers/bq": P(None, "model", None),
+            "layers/bk": P(None, None, "model"),
+            "layers/bv": P(None, None, "model"),
+        }
+    else:
+        mode = "hd"
+        rules = {
+            "layers/wq": P(None, "fsdp", None, "model"),
+            "layers/wk": P(None, "fsdp", None, "model"),
+            "layers/wv": P(None, "fsdp", None, "model"),
+            "layers/wo": P(None, None, "model", "fsdp"),
+            "layers/bq": P(None, None, "model"),
+            "layers/bk": P(None, None, "model"),
+            "layers/bv": P(None, None, "model"),
+        }
+    return mode, rules
+
+
+def _resolve(rules: Dict[str, P], axes: MeshAxes) -> Dict[str, P]:
+    def fix(spec: P) -> P:
+        out = []
+        for s in spec:
+            if s == "fsdp":
+                out.append(axes.fsdp)
+            elif s == "dp":
+                out.append(axes.dp)
+            elif s == "all":
+                out.append(axes.all)
+            else:
+                out.append(s)
+        return P(*out)
+
+    return {k: fix(v) for k, v in rules.items()}
+
+
 _LONG_SKIP = (
     "pure full-attention arch: long_500k requires sub-quadratic "
     "attention (see DESIGN.md §Arch-applicability); bonus best-effort "
@@ -98,11 +201,13 @@ class LMSpec(ArchSpec):
     long_batch: int = 1
     # microbatch gradient accumulation (memory lever for the big models)
     accum_steps: int = 1
-    # the reference's hillclimb knobs, kept field for field; sequence
-    # parallelism, the MoE weights' fsdp dim and fsdp serving params are
-    # sharding choices (ROADMAP Queue 1, item 4)
+    # Megatron sequence parallelism (see transformer.py) for train/prefill
     seq_parallel: bool = False
+    # fsdp axis placement for MoE expert weights: "d" (d_model, default) or
+    # "ff" (expert hidden dim — avoids sharding the einsum contraction)
     moe_fsdp_dim: str = "d"
+    # serving params: fsdp-sharded (ZeRO-style, default) vs model-only (TP:
+    # weights resident, no per-token all-gather)
     serve_param_fsdp: bool = True
     # optimizer moment dtype ("bfloat16" for the largest models)
     moment_dtype: str = "float32"
@@ -117,6 +222,13 @@ class LMSpec(ArchSpec):
     def _opt_cfg(self):
         return AdamWConfig(moment_dtype=self.moment_dtype,
                            grad_clip=self.grad_clip)
+
+    def _eff_accum(self, axes) -> int:
+        """dp-adaptive microbatching: a 16-wide dp axis can split the global
+        batch twice as fine as the 32-wide multi-pod dp (divisibility)."""
+        if self.accum_steps == 1 or axes is None:
+            return self.accum_steps
+        return self.accum_steps * max(1, 32 // axes.dp_size)
 
     def shapes(self) -> Dict[str, ShapeSpec]:
         return {
@@ -140,6 +252,9 @@ class LMSpec(ArchSpec):
         }
 
     # -- state / inputs -----------------------------------------------------
+
+    def abstract_params(self, dtype):
+        return tf_mod.init_params(None, self.cfg, dtype, device="meta")
 
     def init_state(self, shape, device=None, generator=None):
         """train: float32 params and AdamW's state from ``_opt_cfg()``;
@@ -173,8 +288,22 @@ class LMSpec(ArchSpec):
 
     # -- step functions -------------------------------------------------------
 
-    def make_step(self, shape, n_shards: int = 1):
+    def make_step(self, shape, axes: Optional[MeshAxes] = None):
         cfg = self.cfg
+        if axes is not None:
+            # activation-sharding anchors (see transformer.py)
+            mode, _ = lm_attn_rules(
+                cfg.n_heads, cfg.n_kv_heads, axes.model_size
+            )
+            cfg = dataclasses.replace(
+                cfg, dp_axes=tuple(axes.dp), tp_axis=axes.model,
+                attn_shard=mode,
+                seq_parallel=self.seq_parallel
+                and shape.kind in ("train", "prefill"),
+            )
+        return _on_mesh(self._step(shape, cfg, axes), axes)
+
+    def _step(self, shape, cfg, axes):
         if shape.kind == "train":
             cast_bf16 = self.bf16_weight_gather
 
@@ -185,7 +314,8 @@ class LMSpec(ArchSpec):
                 return tf_mod.loss_fn(p, cfg, batch)
 
             step = make_train_step(loss_of, TrainStepConfig(
-                optimizer=self._opt_cfg(), accum_steps=self.accum_steps))
+                optimizer=self._opt_cfg(),
+                accum_steps=self._eff_accum(axes)))
 
             def train_step(state, inputs):
                 params, opt, out = step(state["params"], state["opt"],
@@ -212,6 +342,68 @@ class LMSpec(ArchSpec):
                     {"next_token": next_tok})
 
         return decode
+
+    # -- shardings ------------------------------------------------------------
+
+    def state_shardings(self, shape: ShapeSpec, axes: MeshAxes):
+        _, attn_rules = lm_attn_rules(
+            self.cfg.n_heads, self.cfg.n_kv_heads, axes.model_size
+        )
+        merged = {**LM_PARAM_RULES, **attn_rules}
+        if self.moe_fsdp_dim == "ff":
+            merged = {**merged,
+                      "layers/moe/w_gate": P(None, "model", None, "fsdp"),
+                      "layers/moe/w_up": P(None, "model", None, "fsdp"),
+                      "layers/moe/w_down": P(None, "model", "fsdp", None)}
+        if shape.kind != "train" and not self.serve_param_fsdp:
+            merged = {
+                k: P(*[None if a == "fsdp" else a for a in v])
+                for k, v in merged.items()
+            }
+        rules = _resolve(merged, axes)
+        params = map_rules(self.abstract_params(torch.float32), rules)
+        if shape.kind == "train":
+            return {"params": params, "opt": _opt_specs(params)}
+        if shape.kind == "decode":
+            b = shape.dims["batch"]
+            if b >= 16:
+                kv = P(None, axes.dp, axes.model, None, None)
+                ln = P(axes.dp)
+            else:
+                kv = P(None, None, axes.dp + (axes.model,), None, None)
+                ln = P(None)
+            return {
+                "params": params,
+                "cache": {"k": kv, "v": kv, "len": ln},
+            }
+        return {"params": params}
+
+    def input_shardings(self, shape: ShapeSpec, axes: MeshAxes):
+        if shape.kind in ("train", "prefill"):
+            tok = P(axes.dp, None)
+            if shape.kind == "train":
+                return {"tokens": tok, "labels": tok}
+            return {"tokens": tok}
+        b = shape.dims["batch"]
+        return {"tokens": P(axes.dp) if b >= 16 else P(None)}
+
+    def out_shardings(self, shape: ShapeSpec, axes: MeshAxes):
+        state = self.state_shardings(shape, axes)
+        if shape.kind == "train":
+            return (state, {"loss": P()})
+        if shape.kind == "prefill":
+            # cache rides (batch->dp, seq->model): kv_heads (4/8/16) need not
+            # divide the model axis, the 32k sequence always does
+            cache_kv = P(None, axes.dp, axes.model, None, None)
+            return (
+                state,
+                {
+                    "logits": P(axes.dp, axes.model),
+                    "cache": {"k": cache_kv, "v": cache_kv, "len": P(axes.dp)},
+                },
+            )
+        b = shape.dims["batch"]
+        return (state, {"next_token": P(axes.dp) if b >= 16 else P(None)})
 
     # -- roofline ------------------------------------------------------------
 
@@ -377,7 +569,7 @@ class GNNSpec(ArchSpec):
             "labels": _randint(gen, d["n_classes"], (g,), dev),
         }
 
-    def make_step(self, shape, n_shards: int = 1):
+    def make_step(self, shape, axes: Optional[MeshAxes] = None):
         cfg = self._cfg(shape)
         n_graphs = shape.dims.get("batch", 0)
 
@@ -389,7 +581,36 @@ class GNNSpec(ArchSpec):
                 batch["n_graphs"] = n_graphs
             return gnn_mod.gcn_loss(p, cfg, batch)
 
-        return _train_step(loss_of)
+        return _on_mesh(_train_step(loss_of), axes)
+
+    def state_shardings(self, shape: ShapeSpec, axes: MeshAxes):
+        params = replicated(self.abstract_state(shape)["params"])
+        return {"params": params, "opt": _opt_specs(params)}
+
+    def input_shardings(self, shape: ShapeSpec, axes: MeshAxes):
+        if shape.kind == "fullbatch":
+            return {
+                "feats": P(axes.all, None),
+                "edges": P(None, axes.all),
+                "labels": P(axes.all),
+            }
+        if shape.kind == "minibatch":
+            return {
+                "feats": P(axes.all, None),
+                "seeds": P(axes.dp),
+                "hop1": P(axes.dp),
+                "hop2": P(axes.dp),
+                "labels": P(axes.dp),
+            }
+        return {
+            "feats": P(axes.dp, None),
+            "edges": P(None, axes.dp),
+            "graph_ids": P(axes.dp),
+            "labels": P(axes.dp),
+        }
+
+    def out_shardings(self, shape: ShapeSpec, axes: MeshAxes):
+        return (self.state_shardings(shape, axes), {"loss": P()})
 
     def model_flops(self, shape: ShapeSpec) -> float:
         cfg = self._cfg(shape)
@@ -480,11 +701,11 @@ class DLRMSpec(ArchSpec):
             out["labels"] = _labels(gen, b, dev)
         return out
 
-    def make_step(self, shape, n_shards: int = 1):
+    def make_step(self, shape, axes: Optional[MeshAxes] = None):
         cfg = self.cfg
         if shape.kind == "train":
-            return _train_step(
-                lambda p, inputs: rec_mod.dlrm_loss(p, cfg, inputs))
+            return _on_mesh(_train_step(
+                lambda p, inputs: rec_mod.dlrm_loss(p, cfg, inputs)), axes)
 
         @torch.no_grad()
         def serve_step(state, inputs):
@@ -493,7 +714,36 @@ class DLRMSpec(ArchSpec):
             )
             return state, {"scores": torch.sigmoid(logits)}
 
-        return serve_step
+        return _on_mesh(serve_step, axes)
+
+    def _table_specs(self, axes: MeshAxes):
+        return {
+            f"t{i}": P(axes.all, None) if v >= 65536 else P()
+            for i, v in enumerate(self.cfg.vocab_sizes)
+        }
+
+    def state_shardings(self, shape, axes):
+        params_abs = self.abstract_state(shape)["params"]
+        params = {
+            "tables": self._table_specs(axes),
+            "bot": replicated(params_abs["bot"]),
+            "top": replicated(params_abs["top"]),
+        }
+        if shape.kind == "train":
+            return {"params": params, "opt": _opt_specs(params)}
+        return {"params": params}
+
+    def input_shardings(self, shape, axes):
+        sh = {"dense": P(axes.dp, None), "sparse": P(axes.dp, None)}
+        if shape.kind == "train":
+            sh["labels"] = P(axes.dp)
+        return sh
+
+    def out_shardings(self, shape, axes):
+        state = self.state_shardings(shape, axes)
+        if shape.kind == "train":
+            return (state, {"loss": P()})
+        return (state, {"scores": P(axes.dp)})
 
     def model_flops(self, shape):
         b = self._batch(shape)
@@ -564,7 +814,10 @@ class DINSpec(ArchSpec):
             out["labels"] = _labels(gen, b, dev)
         return out
 
-    def make_step(self, shape, n_shards: int = 1):
+    def make_step(self, shape, axes: Optional[MeshAxes] = None):
+        return _on_mesh(self._step(shape), axes)
+
+    def _step(self, shape):
         cfg = self.cfg
         if shape.kind == "train":
             return _train_step(
@@ -592,6 +845,35 @@ class DINSpec(ArchSpec):
             return state, {"scores": torch.sigmoid(logits)}
 
         return serve_step
+
+    def state_shardings(self, shape, axes):
+        params = replicated(self.abstract_state(shape)["params"])
+        params["items"] = P(axes.all, None)
+        if shape.kind == "train":
+            return {"params": params, "opt": _opt_specs(params)}
+        return {"params": params}
+
+    def input_shardings(self, shape, axes):
+        if shape.kind == "retrieval":
+            return {
+                "hist": P(None, None),
+                "hist_len": P(None),
+                "target": P(axes.dp),
+            }
+        sh = {
+            "hist": P(axes.dp, None),
+            "hist_len": P(axes.dp),
+            "target": P(axes.dp),
+        }
+        if shape.kind == "train":
+            sh["labels"] = P(axes.dp)
+        return sh
+
+    def out_shardings(self, shape, axes):
+        state = self.state_shardings(shape, axes)
+        if shape.kind == "train":
+            return (state, {"loss": P()})
+        return (state, {"scores": P(axes.dp)})
 
     def model_flops(self, shape):
         cfg = self.cfg
@@ -669,13 +951,17 @@ class TwoTowerSpec(ArchSpec):
             "item_ids": _randint(gen, self.cfg.item_vocab, (b,), dev),
         }
 
-    def make_step(self, shape, n_shards: int = 1):
+    def make_step(self, shape, axes: Optional[MeshAxes] = None):
+        return _on_mesh(self._step(shape, axes), axes)
+
+    def _step(self, shape, axes):
         cfg = self.cfg
         if shape.kind == "train":
             return _train_step(
                 lambda p, inputs: rec_mod.two_tower_loss(p, cfg, inputs))
         if shape.kind == "retrieval":
-            n_blocks = n_shards if self.two_phase_topk else 1
+            n_blocks = (axes.all_size if axes is not None
+                        and self.two_phase_topk else 1)
 
             @torch.no_grad()
             def retrieval_step(state, inputs):
@@ -695,6 +981,30 @@ class TwoTowerSpec(ArchSpec):
             return state, {"scores": torch.sum(u * i, dim=-1)}
 
         return serve_step
+
+    def state_shardings(self, shape, axes):
+        params = replicated(self.abstract_state(shape)["params"])
+        params["user_emb"] = P(axes.all, None)
+        params["item_emb"] = P(axes.all, None)
+        state = {"params": params}
+        if shape.kind == "train":
+            state["opt"] = _opt_specs(params)
+        if shape.kind == "retrieval":
+            state["cand_embs"] = P(axes.all, None)
+        return state
+
+    def input_shardings(self, shape, axes):
+        if shape.kind == "retrieval":
+            return {"user_ids": P(None)}
+        return {"user_ids": P(axes.dp), "item_ids": P(axes.dp)}
+
+    def out_shardings(self, shape, axes):
+        state = self.state_shardings(shape, axes)
+        if shape.kind == "train":
+            return (state, {"loss": P()})
+        if shape.kind == "retrieval":
+            return (state, {"scores": P(None, None), "ids": P(None, None)})
+        return (state, {"scores": P(axes.dp)})
 
     def model_flops(self, shape):
         cfg = self.cfg
@@ -720,5 +1030,5 @@ class TwoTowerSpec(ArchSpec):
         )
 
 
-__all__ = ["DINSpec", "DLRMSpec", "GNNSpec", "LMSpec", "RECSYS_SHAPES",
-           "TwoTowerSpec"]
+__all__ = ["DINSpec", "DLRMSpec", "GNNSpec", "LMSpec", "LM_PARAM_RULES",
+           "RECSYS_SHAPES", "TwoTowerSpec", "lm_attn_rules"]

@@ -469,7 +469,7 @@ class ShardedIndex:
             sequential if sequential is not None
             else user.get("sequential", True),
             n_logical, True)
-        idx.rows = [restore_onto(row, idx.row_device(i))
+        idx.rows = [restore_onto(row, device=idx.row_device(i))
                     for i, row in enumerate(unstack_state(state))]
         return idx, step
 
@@ -504,7 +504,7 @@ class ShardedIndex:
 
     def _as_rows(self, states):
         if isinstance(states, IndexState):
-            return [restore_onto(_numpy_tree(r), self.row_device(i))
+            return [restore_onto(_numpy_tree(r), device=self.row_device(i))
                     for i, r in enumerate(unstack_state(states))]
         return list(states)
 

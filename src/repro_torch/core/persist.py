@@ -149,7 +149,7 @@ def restore_index(manager: CheckpointManager, cfg: ANNConfig, *,
     step, tree, extra = manager.load(step, like=template)
     if saved_cap == cfg.n_cap and device is False:
         return step, tree, extra
-    state = restore_onto(tree, "cpu" if device is False else device)
+    state = restore_onto(tree, device="cpu" if device is False else device)
     if saved_cap != cfg.n_cap:
         state, _ = grow_index(state, load_cfg, cfg.n_cap)
     if device is False:

@@ -5,7 +5,10 @@
 exception (including an injected ``SimulatedFailure``, standing in for a
 lost worker) rolls the state back to the last complete checkpoint and
 resumes.  A step that is a pure function of ``(state, t)`` makes the resume
-bit-exact: the final state equals an uninterrupted run's.
+bit-exact: the final state equals an uninterrupted run's.  With
+``shardings`` (a tree of ``launch.mesh.NamedSharding``) a restored state
+is DTensors on those placements, as the reference's lands on its
+``NamedSharding``s.
 """
 from __future__ import annotations
 
@@ -37,14 +40,15 @@ class Supervisor:
         step_fn: Callable[[Any, int], Any],
         n_steps: int,
         *,
+        shardings: Any = None,
         device=None,
         fail_at: Optional[Dict[int, int]] = None,
         log: Optional[Callable[[str], None]] = None,
     ):
         """Run ``state = step_fn(state, t)`` for t in [0, n_steps) under
-        restart supervision; a restored state lands on ``device`` (default:
-        the card).  ``fail_at`` maps step -> how many times to inject a
-        failure at that step (for tests)."""
+        restart supervision; a restored state lands on ``shardings``, else
+        on ``device`` (default: the card).  ``fail_at`` maps step -> how
+        many times to inject a failure at that step (for tests)."""
         log = log or (lambda s: None)
         fail_budget = dict(fail_at or {})
         state = init_state
@@ -77,6 +81,6 @@ class Supervisor:
                     state, t = init_state, 0
                 else:
                     _, tree, _ = self.manager.load(latest, like=state)
-                    state = restore_onto(tree, device)
+                    state = restore_onto(tree, shardings, device=device)
                     t = latest
         return state, {"restarts": restarts, "final_step": t}

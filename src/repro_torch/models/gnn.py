@@ -71,8 +71,8 @@ def _sym_norm_coef(src, dst, n_nodes: int):
     (deg counts in-edges plus the self loop).  The per-node gathers index
     as ``x[ids]`` does in JAX: a negative id wraps once, then every id is
     clamped into range."""
-    ones = torch.ones(src.shape, dtype=torch.float32, device=src.device)
-    deg = _segment_sum(ones, dst, n_nodes) + 1.0
+    deg = _segment_sum(torch.ones_like(dst, dtype=torch.float32), dst,
+                       n_nodes) + 1.0
     inv_sqrt = torch.rsqrt(deg)
     coef = inv_sqrt[_clamped(src, n_nodes)] * inv_sqrt[_clamped(dst, n_nodes)]
     return coef, inv_sqrt
@@ -110,8 +110,8 @@ def gcn_loss(params, cfg: GCNConfig, batch):
         n_graphs = batch["n_graphs"]
         pooled = _segment_sum(logits, batch["graph_ids"], n_graphs)
         counts = _segment_sum(
-            torch.ones((logits.shape[0],), dtype=torch.float32,
-                       device=logits.device), batch["graph_ids"], n_graphs)
+            torch.ones_like(batch["graph_ids"], dtype=torch.float32),
+            batch["graph_ids"], n_graphs)
         pooled = pooled / torch.clamp(counts, min=1.0)[:, None]
         return cross_entropy_loss(pooled, batch["labels"])
     return cross_entropy_loss(logits, batch["labels"])

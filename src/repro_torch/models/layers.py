@@ -18,8 +18,10 @@ The arithmetic is the reference's, cast for cast:
     changes no value; and the mask is applied only to the tiles that
     straddle the diagonal (elsewhere it keeps every score).
 
-``constrain`` is the reference's sharding anchor, a no-op without a mesh;
-the port has no mesh yet (ROADMAP Queue 1, item 4), so it is the identity.
+``constrain`` is the reference's sharding anchor: a DTensor is
+redistributed to the spec's placements on its own mesh; a plain tensor (no
+mesh) or a None spec passes as it is, as the reference's is a no-op
+without a mesh.
 """
 from __future__ import annotations
 
@@ -29,9 +31,24 @@ import torch.nn.functional as F
 _F32 = torch.float32
 
 
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
 def constrain(x, spec):
-    """The reference's ``with_sharding_constraint`` anchor: the identity."""
-    return x
+    """The reference's ``with_sharding_constraint``: ``x`` redistributed to
+    the placements of ``spec`` (a ``configs.base.PartitionSpec``) on its
+    mesh when ``x`` is a DTensor; else ``x`` itself, as is a None spec.
+    As JAX's, the anchor holds for the gradient too: ``redistribute``
+    brings the gradient back to ``x``'s placements, even where the forward
+    moves nothing."""
+    if spec is None or not is_dtensor(x):
+        return x
+    from ..configs.base import placements
+
+    return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
 
 
 def rms_norm(x, weight, eps=1e-6):
@@ -204,12 +221,74 @@ def _chunked_attention(q, k, v, *, causal, q_chunk=2048, kv_chunk=2048):
 
 def gqa_attention(q, k, v, *, causal=True, q_offset=0, kv_len=None,
                   chunked_threshold=8192):
-    """Dispatch between plain and chunked attention by sequence length."""
+    """Dispatch between plain and chunked attention by sequence length;
+    DTensors go device by device (``_sharded_attention``) unless the keys
+    are split over their sequence (a decode cache), where DTensor's own
+    ops keep that split."""
+    if is_dtensor(q) and not _sequence_split(k):
+        return _sharded_attention(q, k, v, causal=causal, q_offset=q_offset,
+                                  kv_len=kv_len,
+                                  chunked_threshold=chunked_threshold)
     s, t = q.shape[1], k.shape[1]
     if s == t and s > chunked_threshold and kv_len is None:
         return _chunked_attention(q, k, v, causal=causal)
     return _plain_attention(q, k, v, causal=causal, q_offset=q_offset,
                             kv_len=kv_len)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, its gradient made contiguous on the way back."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _sequence_split(k) -> bool:
+    from torch.distributed.tensor import Shard
+
+    return is_dtensor(k) and any(isinstance(p, Shard) and p.dim == 1
+                                 for p in k.placements)
+
+
+def _sharded_attention(q, k, v, *, causal, q_offset, kv_len,
+                       chunked_threshold):
+    """Attention on DTensors q (B,S,KV,G,hd), k / v (B,T,KV,hd), device by
+    device: attention is independent per (batch row, KV head), so q, k and
+    v are brought to one layout that keeps q's splits of the batch (dim 0)
+    and KV-head (dim 2) axes and replicates the rest, and each device runs
+    ``gqa_attention`` on its own block (the same values as on the whole
+    tensors).  This spares DTensor the strided splits of the reshapes
+    inside, which its redistribution planner searches at length."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = q.device_mesh
+    layout = [p if type(p) is Shard and p.dim in (0, 2) else Replicate()
+              for p in q.placements]
+    # each block's gradient made contiguous on its way back: DTensor runs
+    # the views before it on the local layout it is handed
+    ql, kl, vl = (_ContiguousGrad.apply(
+        x.redistribute(mesh, layout).to_local()) for x in (q, k, v))
+    if kv_len is not None:
+        if not is_dtensor(kv_len):
+            kv_len = DTensor.from_local(kv_len, mesh,
+                                        [Replicate()] * mesh.ndim,
+                                        run_check=False)
+        kv_len = kv_len.redistribute(mesh, [
+            p if p == Shard(0) else Replicate() for p in layout]).to_local()
+    # contiguous: the DTensor states a contiguous stride for its shard
+    out = gqa_attention(ql, kl, vl, causal=causal, q_offset=q_offset,
+                        kv_len=kv_len,
+                        chunked_threshold=chunked_threshold).contiguous()
+    shape = q.shape
+    return DTensor.from_local(out, mesh, layout, run_check=False,
+                              shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
 
 
 # ---------------------------------------------------------------------------
@@ -232,7 +311,18 @@ def cross_entropy_loss(logits, labels, ignore_id: int = -1):
     lse = torch.logsumexp(logits, dim=-1)
     v = logits.shape[-1]
     lab = torch.clamp(labels.long(), min=0)
-    ll = torch.gather(logits, -1, lab.clamp(max=v - 1)[..., None])[..., 0]
+    if is_dtensor(logits):
+        # the gather as a masked sum over the (possibly split) vocabulary:
+        # each device keeps its own label columns, zeros elsewhere, and the
+        # sum meets them; the same value (x plus zeros is x).  Plain
+        # logits take the gather, which spares a float32 select and a bool
+        # mask as large as the logits (5 bytes a logit)
+        hit = (torch.arange(v, device=logits.device)
+               == lab.clamp(max=v - 1)[..., None])
+        ll = torch.where(hit, logits, 0.0).sum(-1)
+    else:
+        ll = torch.gather(logits, -1,
+                          lab.clamp(max=v - 1)[..., None])[..., 0]
     ll = ll.masked_fill(lab >= v, float("nan"))
     nll = lse - ll
     mask = labels != ignore_id
@@ -240,5 +330,5 @@ def cross_entropy_loss(logits, labels, ignore_id: int = -1):
 
 
 __all__ = ["apply_norm", "apply_rope", "constrain", "cross_entropy_loss",
-           "gqa_attention", "matmul_f32", "nonparam_layer_norm",
-           "rms_norm", "rope_freqs", "swiglu"]
+           "gqa_attention", "is_dtensor", "matmul_f32",
+           "nonparam_layer_norm", "rms_norm", "rope_freqs", "swiglu"]

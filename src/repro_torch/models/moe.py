@@ -23,7 +23,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from .layers import _softmax
+from .layers import _softmax, constrain
 from .recsys import _normal, _top_k
 
 
@@ -64,34 +64,39 @@ def init_moe_params(generator, d_model: int, cfg: MoEConfig,
     }
 
 
-def moe_ffn(params, x, cfg: MoEConfig):
+def moe_ffn(params, x, cfg: MoEConfig, dp_spec=None, ep_spec=None):
     """x: (T, d) tokens.  Returns (out (T, d), aux_loss scalar).
 
-    Long token streams are processed in ``dispatch_chunk`` chunks, one
-    after another, and their aux losses averaged.  (The reference's
-    ``dp_spec`` / ``ep_spec`` sharding anchors wait for the mesh.)"""
-    t, d = x.shape
+    ``dp_spec`` anchors token activations (tokens sharded over data),
+    ``ep_spec`` anchors the (E, C, d) expert buffers (experts over model);
+    both act on DTensors only (``layers.constrain``).  Long token streams
+    are processed in ``dispatch_chunk`` chunks, one after another, and
+    their aux losses averaged."""
+    t = x.shape[0]
     chunk = cfg.dispatch_chunk
     if chunk and t > chunk and t % chunk == 0:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         outs = []
-        for xc in x.reshape(t // chunk, chunk, d):
-            out_c, aux_c = _moe_once(params, xc, cfg)
+        # sliced, not unflattened: a DTensor's token axis may be split
+        # across chunks
+        for xc in torch.split(x, chunk):
+            out_c, aux_c = _moe_once(params, xc, cfg, dp_spec, ep_spec)
             aux = aux + aux_c
             outs.append(out_c)
         # a divisor on the device: CUDA turns division by a host scalar
         # into a product with its reciprocal
         n = torch.full((), float(t // chunk), device=x.device)
         return torch.cat(outs, dim=0), aux / n
-    return _moe_once(params, x, cfg)
+    return _moe_once(params, x, cfg, dp_spec, ep_spec)
 
 
-def _moe_once(params, x, cfg: MoEConfig):
+def _moe_once(params, x, cfg: MoEConfig, dp_spec=None, ep_spec=None):
     t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = cfg.capacity(t)
     dev = x.device
     params = {n: w.to(x.dtype) for n, w in params.items()}
+    x = constrain(x, dp_spec)
 
     logits = (x @ params["router"]).to(torch.float32)        # (T, E)
     probs = _softmax(logits)
@@ -101,17 +106,21 @@ def _moe_once(params, x, cfg: MoEConfig):
     # load-balancing aux loss (Switch): E * sum_e f_e * p_e
     me = torch.mean(probs, dim=0)
     flat_e = top_i.reshape(-1).long()                        # (T*k,)
-    ce = torch.zeros((e,), dtype=torch.float32, device=dev).index_add_(
-        0, flat_e, torch.full((t * k,), 1.0 / (t * k), device=dev))
+    # the adds and scatters out of place, into buffers made from the
+    # routed tensors (DTensors where the tokens are); they are (E,) and
+    # (T*k,) long
+    ce = probs.new_zeros((e,)).index_add(
+        0, flat_e, probs.new_full((t * k,), 1.0 / (t * k)))
     aux = cfg.router_aux_weight * e * torch.sum(me * ce)
 
     # --- rank tokens within each expert (stable by token order) ------------
     order = torch.sort(flat_e, stable=True).indices
     sorted_e = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=e)
+    counts = flat_e.new_zeros((e,)).index_add(0, flat_e,
+                                              torch.ones_like(flat_e))
     group_start = torch.cumsum(counts, 0) - counts
     rank_sorted = torch.arange(t * k, device=dev) - group_start[sorted_e]
-    rank = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
+    rank = torch.empty_like(rank_sorted).scatter(0, order, rank_sorted)
 
     keep = rank < cap
     slot = torch.where(keep, flat_e * cap + rank,
@@ -119,16 +128,18 @@ def _moe_once(params, x, cfg: MoEConfig):
     token_of = torch.arange(t, device=dev).repeat_interleave(k)
 
     # --- dispatch: invert the routing (slot -> token), gather rows ---------
-    inv = torch.full((e * cap + 1,), t, dtype=torch.long, device=dev)
-    inv = inv.scatter_(0, slot, token_of)[:e * cap]
+    inv = slot.new_full((e * cap + 1,), t).scatter(0, slot,
+                                                   token_of)[:e * cap]
     filled = inv < t
     buf = torch.where(filled[:, None], x[inv.clamp(max=t - 1)], 0.0)
-    buf = buf.reshape(e, cap, d)
+    buf = constrain(buf.reshape(e, cap, d), ep_spec)
 
     # --- expert computation (batched SwiGLU over the expert axis) ----------
     h = F.silu(torch.bmm(buf, params["w_gate"])) * torch.bmm(
         buf, params["w_up"])
-    out_buf = torch.bmm(h, params["w_down"]).reshape(e * cap, d)
+    h = constrain(h, ep_spec)
+    out_buf = constrain(torch.bmm(h, params["w_down"]),
+                        ep_spec).reshape(e * cap, d)
 
     # --- combine: k per-choice gathers, accumulated in j order --------------
     slot_tk = slot.reshape(t, k)
@@ -136,10 +147,11 @@ def _moe_once(params, x, cfg: MoEConfig):
     w_tk = top_p.to(x.dtype)
     out = torch.zeros((t, d), dtype=x.dtype, device=dev)
     for j in range(k):
-        rows = out_buf[slot_tk[:, j].clamp(max=e * cap - 1)]
+        rows = constrain(out_buf[slot_tk[:, j].clamp(max=e * cap - 1)],
+                         dp_spec)
         out = out + torch.where(keep_tk[:, j][:, None],
                                 rows * w_tk[:, j][:, None], 0.0)
-    return out, aux
+    return constrain(out, dp_spec), aux
 
 
 __all__ = ["MoEConfig", "init_moe_params", "moe_ffn"]

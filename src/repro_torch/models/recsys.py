@@ -30,6 +30,7 @@ from torch import nn
 
 from ..core.types import resolve_device
 from ..kernels.ref import stable_topk_smallest
+from .layers import is_dtensor
 
 # Criteo-Kaggle per-field cardinalities (DLRM RM2 regime, public counts).
 CRITEO_KAGGLE_VOCABS = (
@@ -57,20 +58,33 @@ def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     ids = ids.long()
     ids = torch.where(ids < 0, ids + v, ids)
     ok = (ids >= 0) & (ids < v)
-    # the NaN fill in place on the gathered rows (one copy of them, not
-    # two); under autograd their gradient is dropped, as ``jnp.take``'s is
-    return table[ids.clamp(0, v - 1)].masked_fill_(~ok.unsqueeze(-1),
-                                                   float("nan"))
+    # the NaN fill in place on the gathered rows: it spares a second copy
+    # of them, 4 E d bytes for the GCN's edge messages (11.6 GB at
+    # ogb_products' 61,859,328 edges and its last layer's 47 classes).
+    # Under autograd their gradient is dropped, as ``jnp.take``'s is.
+    # DTensor rows (a pending sum, from a table split over rows) are
+    # filled out of place, which their placement needs
+    rows = table[ids.clamp(0, v - 1)]
+    if is_dtensor(rows):
+        return rows.masked_fill(~ok.unsqueeze(-1), float("nan"))
+    return rows.masked_fill_(~ok.unsqueeze(-1), float("nan"))
 
 
 def _segment_sum(x, segment_ids, n_segments: int):
     """``jax.ops.segment_sum``: rows with a segment id outside ``[0,
-    n_segments)`` are dropped (routed to a spare row, then cut off)."""
+    n_segments)`` are dropped (routed to a spare row, then cut off).  The
+    sum's buffer is made from ``x`` (a DTensor where ``x`` is one: an
+    in-place add cannot write DTensors into a plain buffer)."""
     seg = segment_ids.long()
     seg = torch.where((seg >= 0) & (seg < n_segments), seg,
                       torch.full_like(seg, n_segments))
-    out = torch.zeros((n_segments + 1,) + tuple(x.shape[1:]), dtype=x.dtype,
-                      device=x.device)
+    out = x.new_zeros((n_segments + 1,) + tuple(x.shape[1:]))
+    # in place on a plain buffer: it spares a second (n_segments + 1, d)
+    # buffer, 4 (N + 1) d bytes (0.46 GB at ogb_products' 2,449,408 nodes
+    # and its last layer's d = 47).  Out of place on a DTensor, whose
+    # in-place scatter may change its placement without moving its shard
+    if is_dtensor(out):
+        return out.index_add(0, seg, x)[:n_segments]
     return out.index_add_(0, seg, x)[:n_segments]
 
 
@@ -84,8 +98,8 @@ def embedding_bag(table, flat_ids, segment_ids, n_segments: int,
         rows = rows * weights[:, None]
     out = _segment_sum(rows, segment_ids, n_segments)
     if mode == "mean":
-        cnt = _segment_sum(torch.ones(flat_ids.shape, dtype=torch.float32,
-                                      device=rows.device),
+        cnt = _segment_sum(torch.ones_like(segment_ids,
+                                           dtype=torch.float32),
                            segment_ids, n_segments)
         out = out / torch.clamp(cnt, min=1.0)[:, None]
     return out
@@ -110,13 +124,17 @@ def _mlp_params(generator, dims, dtype=torch.float32, device=None):
 
 def _mlp(p, x, final_act=None):
     """``x @ w + b`` per layer, ReLU between layers; the bias add and the
-    ReLU run in place on the product (the same values, half the memory at
-    the serving batches)."""
+    ReLU run in place on the product (the same values; it spares a
+    (B, width) copy a layer, 0.5 GiB at ``serve_bulk``'s B = 262,144 and
+    DLRM's 512-wide top MLP), but on a DTensor product, whose placement
+    may be a pending sum that only an out-of-place op may resolve."""
     n = len(p["w"])
     for i, (w, b) in enumerate(zip(p["w"], p["b"])):
-        x = torch.matmul(x, w).add_(b)
+        x = torch.matmul(x, w)
+        inplace = not is_dtensor(x)
+        x = x.add_(b) if inplace else x + b
         if i < n - 1:
-            x = torch.relu_(x)
+            x = torch.relu_(x) if inplace else torch.relu(x)
         elif final_act is not None:
             x = final_act(x)
     return x

@@ -5,7 +5,8 @@ Gradients come from ``torch.autograd``: ``value_and_grad(loss_fn)`` runs
 ``loss_fn`` on detached copies of the parameter leaves (the same storage,
 ``requires_grad``) and returns the loss and a tree of gradients shaped
 like the parameters (zeros where a leaf does not reach the loss, as
-``jax.grad`` gives).  Dense: an embedding lookup's gradient is a full
+``jax.grad`` gives); a DTensor gradient comes on its parameter's
+placements.  Dense: an embedding lookup's gradient is a full
 table, as ``jnp.take``'s scatter-add transpose is.
 """
 from __future__ import annotations
@@ -34,11 +35,23 @@ def value_and_grad(loss_fn: Callable) -> Callable:
             loss = loss_fn(leaves, *args)
             flat = tree_leaves(leaves)
             grads = torch.autograd.grad(loss, flat, allow_unused=True)
-        by_id = {id(p): (torch.zeros_like(p) if g is None else g)
+        by_id = {id(p): (torch.zeros_like(p) if g is None
+                         else _placed_like(g, p))
                  for p, g in zip(flat, grads)}
         return loss.detach(), tree_map(lambda p: by_id[id(p)], leaves)
 
     return fn
+
+
+def _placed_like(g, p):
+    """A DTensor gradient on its parameter's placements (a pending sum is
+    reduced, or reduced and scattered, as GSPMD gives the gradient of a
+    sharded parameter); a plain one as it is."""
+    from ..models.layers import is_dtensor
+
+    if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(loss_fn: Callable,
@@ -57,14 +70,20 @@ def make_train_step(loss_fn: Callable,
             loss, grads = grads_of(params, batch)
         else:
             a = cfg.accum_steps
-            split = tree_map(
-                lambda x: x.reshape((a, x.shape[0] // a) + x.shape[1:]),
-                batch)
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            rows = tree_leaves(batch)[0].shape[0]
+            if rows % a:
+                raise ValueError(f"a batch of {rows} rows does not split "
+                                 f"into {a} microbatches")
+            m = rows // a
+            grads = tree_map(
+                lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             loss = 0.0
             for i in range(a):
-                mb_loss, g = grads_of(params, tree_map(lambda x: x[i], split))
+                # microbatch i is rows [i m, (i + 1) m), the reference's
+                # reshape to (a, m, ...); a slice, which a DTensor batch
+                # split over more devices than a takes too
+                mb_loss, g = grads_of(params, tree_map(
+                    lambda x: x[i * m:(i + 1) * m], batch))
                 tree_map(lambda acc, b: acc.add_(b.to(torch.float32)),
                          grads, g)
                 loss = loss + mb_loss

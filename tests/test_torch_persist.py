@@ -77,7 +77,7 @@ def test_save_load_roundtrip(tmp_path):
     assert step == 5 and extra["note"] == "x"
     assert isinstance(got["a"], np.ndarray)
     _leaves_equal(t, got)
-    _leaves_equal(t, restore_onto(got, "cpu"))
+    _leaves_equal(t, restore_onto(got, device="cpu"))
 
 
 def test_keep_and_latest(tmp_path):

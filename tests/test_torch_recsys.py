@@ -617,13 +617,17 @@ def _step_pair(arch, shape_name, data, seed=0, two_phase=None):
 
     from repro.configs.base import MeshAxes
 
+    from repro_torch.configs.base import MeshAxes as TMeshAxes
+
     t, j = all_archs()[arch].reduced(), _jspec(arch, reduced=True)
-    axes = None
+    axes = taxes = None
     if two_phase:
         t = dataclasses.replace(t, two_phase_topk=True)
         j = dataclasses.replace(j, two_phase_topk=True)
         axes = MeshAxes(dp=("data",), fsdp="data", model="model",
                         dp_size=two_phase // 2, model_size=2)
+        taxes = TMeshAxes(dp=("data",), fsdp="data", model="model",
+                          dp_size=two_phase // 2, model_size=2)
     shape = t.shapes()[shape_name]
     gen = torch.Generator().manual_seed(seed)
     state = convert.params_to_numpy(t.init_state(shape, "cpu", gen))
@@ -634,7 +638,7 @@ def _step_pair(arch, shape_name, data, seed=0, two_phase=None):
     _, jout = jax.jit(j.make_step(j.shapes()[shape_name], axes))(
         state, inputs)
     tstate, tinputs = _t(state), _t(inputs)
-    step = t.make_step(shape, n_shards=two_phase or 1)
+    step = t.make_step(shape, taxes)
     new, tout = step(tstate, tinputs)
     assert new is tstate
     if data == "grid" and arch == "two-tower-retrieval":
