@@ -156,18 +156,27 @@ Phases, any failure exits non-zero:
  12. the mesh (``repro_torch.launch.mesh``, the ``*_shardings`` rules,
      ``make_step(shape, axes)``): (a) under a one-rank NCCL group and a 1x1
      ("data", "model") mesh on the card, olmo-1b's train_4k (phase 11b's
-     cut), two-tower's retrieval_cand (10^6 candidates, two-phase top-k)
-     and dlrm-rm2's serve_p99 with their state and inputs placed as
-     DTensors by ``state_shardings`` / ``input_shardings``: bitwise equal
-     to the same step on plain tensors, ms a step of each; the train
-     cell's bytes and FLOPs (``FlopCounterMode``) counted; (b)
-     ``Supervisor.run(shardings=...)`` over olmo-1b's reduced train step
-     with an injected failure: restored onto the placements, bitwise at
-     the uninterrupted run's end; (c) host-side,
-     ``launch.dryrun.run_cell`` for two-tower's retrieval_cand at full
-     size on a fake 16x16 mesh (``ok``), and for (a)'s train cell on a
-     fake 1x1 mesh, whose argument bytes and FLOPs equal the card's
-     exactly; no kernel of ``csrc`` launched.
+     cut) and decode_32k (phase 11a's cut: 16 layers, B = 8),
+     two-tower's retrieval_cand (10^6 candidates, two-phase top-k) and
+     train_batch, dlrm-rm2's serve_p99 and train_batch (B = 65,536) with
+     their state and inputs placed as DTensors by ``state_shardings`` /
+     ``input_shardings``: bitwise equal to the same step on plain tensors,
+     ms a step of each and peak bytes; the train cells' bytes and FLOPs
+     (``FlopCounterMode``) counted; (b) ``Supervisor.run(shardings=...)``
+     over olmo-1b's reduced train step with an injected failure: restored
+     onto the placements, bitwise at the uninterrupted run's end; (c)
+     host-side, ``launch.dryrun.run_cell`` on a fake 16x16 mesh at full
+     size for two-tower's retrieval_cand and train_batch, olmo-1b's
+     decode_32k and train_4k, dlrm-rm2's train_batch and gcn-cora's
+     ogb_products (each ``ok``, its per-device argument bytes equal to
+     the specs' shard shapes and to the PyTorch 2.13 sweep's record), and
+     for (a)'s olmo-1b train cell on a fake 1x1 mesh, whose argument bytes
+     and FLOPs equal the card's exactly; (d) host-side, the split-mesh
+     cases of ``tests/test_torch_mesh.py`` (``tests/torch_mesh_worker.py``
+     ``SPLIT``: reduced cells whose leaves divide (2, 2)) on a real (2, 2)
+     mesh of four gloo ranks made by ``launch.mesh.spawn``, each gathered
+     result within its tolerance of the plain step; no kernel of ``csrc``
+     launched.
 
 Prints the kernels line, the card's name and power limit, and last the
 ``{"ok": true, "device": ...}`` line; the full record goes to
@@ -2268,7 +2277,7 @@ def launcher_agrees():
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
-    flags = ["--dim", "128", "--rate", "32", "--lifetime", "4",
+    flags = ["--dim", "128", "--rate", "16", "--lifetime", "4",
              "--ticks", "12"]
     tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
     runs = {}
@@ -2653,7 +2662,7 @@ def sharded_launcher(device="cuda"):
 
     from repro_torch.launch import serve
 
-    flags = ["--dim", "128", "--rate", "32", "--lifetime", "4",
+    flags = ["--dim", "128", "--rate", "16", "--lifetime", "4",
              "--ticks", "8", "--shards", "2", "--device", device]
     tmp = tempfile.mkdtemp(prefix="chip_smoke_shards_")
     runs = {}
@@ -4052,24 +4061,37 @@ def lm_path(seed):
 
 # the cells stepped under the card's 1x1 mesh: (arch, shape, layers kept,
 # spec fields replaced, axis sizes the step is built for); olmo-1b's train
-# cell at phase 11b's cut (16 layers, B = 4), two-tower's retrieval over
-# 10^6 candidates with the two-phase top-k over ``axes.all_size`` blocks:
-# the step built for a (2, 2) mesh's axes (4 blocks; the card's mesh has
-# one device, so every leaf is whole), and held to the one top-k too
+# cell at phase 11b's cut (16 layers, B = 4) and its decode cell at phase
+# 11a's (16 layers, B = 8: a 34.4 GB cache, which the mesh step gets a
+# copy of beside the plain step's, the bfloat16 params shared),
+# two-tower's retrieval over 10^6 candidates with the two-phase top-k over
+# ``axes.all_size`` blocks: the step built for a (2, 2) mesh's axes (4
+# blocks; the card's mesh has one device, so every leaf is whole), and
+# held to the one top-k too; the recsys train cells at phase 10a's full
+# width (B = 65,536; dlrm-rm2's 26 GB of tables and moments twice, one
+# state for each step, and one step's activations fit the card)
 MESH_CELLS = (
     ("olmo-1b", "train_4k", 16, {"train_batch": 4}, None),
     ("two-tower-retrieval", "retrieval_cand", None,
      {"two_phase_topk": True}, {"dp_size": 2, "model_size": 2}),
     ("dlrm-rm2", "serve_p99", None, {}, None),
+    ("two-tower-retrieval", "train_batch", None, {}, None),
+    ("dlrm-rm2", "train_batch", None, {}, None),
+    ("olmo-1b", "decode_32k", 16, {"decode_batch": 8}, None),
 )
 MESH_REPS = 2
-# the full-size cell of the dry run on the fake 16x16 mesh (host-side):
-# two-tower's retrieval_cand, the paper's serving scenario.  The card's
-# PyTorch (2.11) lacks DTensor strategies that the LM and train cells
-# need (an embedding gradient's index_put, index_add over a split index,
-# a flatten of a sequence-split cache), which PyTorch 2.13 has: the full
-# sweep runs on a host with 2.13 (PERF.md)
-MESH_DRY_CELL = ("two-tower-retrieval", "retrieval_cand")
+# the full-size cells of the dry run on the fake 16x16 mesh (host-side),
+# with their per-device argument bytes in the PyTorch 2.13 sweep's records
+# (PERF.md section 5): these depend on the specs only, so every PyTorch
+# must count the same
+MESH_DRY_CELLS = {
+    ("two-tower-retrieval", "retrieval_cand"): 19359748,
+    ("two-tower-retrieval", "train_batch"): 46106628,
+    ("olmo-1b", "decode_32k"): 2156677184,
+    ("olmo-1b", "train_4k"): 55685124,
+    ("dlrm-rm2", "train_batch"): 144199952,
+    ("gcn-cora", "ogb_products"): 5827560,
+}
 
 
 def host_available_bytes():
@@ -4151,9 +4173,22 @@ def mesh_cell(cell, mesh, dev, seed):
     state = spec.init_state(shape, dev, gen)
     inputs = spec.make_inputs(shape, dev, gen)
     train = shape.kind == "train"
-    # a train step updates its state in place: the mesh gets a copy
-    m_state = lm.place(tree_map(torch.clone, state) if train else state,
-                       spec.state_shardings(shape, axes), mesh)
+    # a train step updates its state in place, a decode step its cache:
+    # the mesh gets a copy of what is written
+    m_state = state
+    if train:
+        m_state = tree_map(torch.clone, state)
+    elif shape.kind == "decode":
+        # phase 11a's cache: random entries and lengths near S, so each
+        # step reads the whole cache
+        c, s = state["cache"], shape.dims["seq"]
+        c["k"].normal_(generator=gen)
+        c["v"].normal_(generator=gen)
+        c["len"] = (s - 8 - torch.arange(c["len"].shape[0], device=dev)
+                    ).to(torch.int32)
+        m_state = {"params": state["params"],
+                   "cache": tree_map(torch.clone, c)}
+    m_state = lm.place(m_state, spec.state_shardings(shape, axes), mesh)
     m_inputs = lm.place(inputs, spec.input_shardings(shape, axes), mesh)
     torch.cuda.synchronize()
     out = {"init_s": time.perf_counter() - t0, "dims": dict(shape.dims),
@@ -4214,7 +4249,7 @@ def mesh_cell(cell, mesh, dev, seed):
         f"plain step ({out['leaves']} leaves); {out['mesh_ms']:.2f} ms a "
         f"step on the mesh, {out['plain_ms']:.2f} plain; peak "
         f"{out['mesh_peak_bytes']} / {out['plain_peak_bytes']} bytes")
-    del state, inputs, m_state, m_inputs
+    del state, p_state, inputs, m_state, m_inputs
     torch.cuda.empty_cache()
     return out
 
@@ -4294,19 +4329,60 @@ def mesh_supervised(mesh, dev, seed, n_steps=6, fail_at=4):
     return out
 
 
+def spec_argument_bytes(spec, shape, mesh_sizes):
+    """Per-device bytes of a cell's state and inputs from its specs alone:
+    each leaf's ``shard_shape`` on a mesh of ``mesh_sizes``."""
+    import math
+
+    from repro_torch.configs import axes_of
+    from repro_torch.configs.base import shard_shape
+    from repro_torch.training.optimizer import tree_leaves
+
+    axes = axes_of(mesh_sizes)
+    total = 0
+    for tree, specs in (
+            (spec.abstract_state(shape), spec.state_shardings(shape, axes)),
+            (spec.abstract_inputs(shape),
+             spec.input_shardings(shape, axes))):
+        for x, sp in zip(tree_leaves(tree), tree_leaves(specs)):
+            total += math.prod(shard_shape(x.shape, sp, mesh_sizes)) * \
+                x.element_size()
+    return total
+
+
 def mesh_dry_run(card):
-    """12c, host-side: ``dryrun.run_cell`` for ``MESH_DRY_CELL`` at full
-    size on the fake 16x16 mesh (``ok``), and for 12a's olmo-1b train cell
-    at its cut on a fake 1x1 mesh, whose per-device argument bytes and
-    FLOPs must equal what the card counted in 12a, exactly."""
+    """12c, host-side: ``dryrun.run_cell`` for each cell of
+    ``MESH_DRY_CELLS`` at full size on the fake 16x16 mesh (``ok``, its
+    per-device argument bytes equal to the specs' shard shapes and to the
+    PyTorch 2.13 sweep's record), and for 12a's olmo-1b train cell at its
+    cut on a fake 1x1 mesh, whose per-device argument bytes and FLOPs must
+    equal what the card counted in 12a, exactly."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.dryrun import run_cell
 
-    name, shape_name = MESH_DRY_CELL
-    spec = get_arch(name)
-    full = run_cell(spec, spec.shapes()[shape_name], multi_pod=False)
-    check(full["status"] == "ok", f"phase 12c: the dry run of {name} "
-          f"{shape_name} on 16x16: {full.get('error')}")
+    keep = ("status", "mesh", "n_devices", "step_s", "memory",
+            "collectives", "roofline")
+    out = {"full": {}}
+    sizes = {"data": 16, "model": 16}
+    for (name, shape_name), want in MESH_DRY_CELLS.items():
+        spec = get_arch(name)
+        shape = spec.shapes()[shape_name]
+        full = run_cell(spec, shape, multi_pod=False)
+        check(full["status"] == "ok", f"phase 12c: the dry run of {name} "
+              f"{shape_name} on 16x16: {full.get('error')}")
+        args = full["memory"]["argument_bytes"]
+        from_specs = spec_argument_bytes(spec, shape, sizes)
+        check(args == from_specs == want, f"phase 12c: {name} "
+              f"{shape_name} on 16x16 counts {args} argument bytes a "
+              f"device; its specs give {from_specs}, the 2.13 record "
+              f"{want}")
+        out["full"][f"{name} {shape_name}"] = {
+            k: full[k] for k in keep}
+        log(f"12c dry run: {name} {shape_name} on 16x16 ok in "
+            f"{full['step_s']} s host, {args} argument bytes a device (the "
+            f"2.13 record's), peak {full['memory']['peak_bytes_per_device']}"
+            f", {full['roofline']['flops_per_device']} FLOPs, dominant "
+            f"{full['roofline']['dominant']}")
     arch, shape_name, layers, fields, _ = MESH_CELLS[0]
     cut = mesh_spec(arch, layers, fields)
     small = run_cell(cut, cut.shapes()[shape_name], mesh_shape=(1, 1),
@@ -4320,27 +4396,91 @@ def mesh_dry_run(card):
     check(flops == card["flop_counter_flops"],
           f"phase 12c: predicted {flops} FLOPs, the card's "
           f"{card['flop_counter_flops']}")
-    keep = ("status", "mesh", "n_devices", "step_s", "memory",
-            "collectives", "roofline")
-    out = {"full": {"cell": f"{name} {shape_name}",
-                    **{k: full[k] for k in keep}},
-           "cut_1x1": {"cell": f"{arch} {shape_name} ({layers} layers)",
-                       **{k: small[k] for k in keep}},
-           "argument_bytes_equal": True, "flops_equal": True}
-    log(f"12c dry run: {name} {MESH_DRY_CELL[1]} on 16x16 ok in "
-        f"{full['step_s']} s host, "
-        f"{full['memory']['peak_bytes_per_device']} bytes a device, "
-        f"dominant {full['roofline']['dominant']}; the 1x1 cut predicts the "
-        f"card's {args} argument bytes and {flops} FLOPs")
+    out.update({"cut_1x1": {"cell": f"{arch} {shape_name} ({layers} "
+                                    f"layers)", **{k: small[k] for k in keep}},
+                "argument_bytes_equal": True, "flops_equal": True})
+    log(f"12c dry run: the 1x1 cut predicts the card's {args} argument "
+        f"bytes and {flops} FLOPs")
     return out
+
+
+class SplitRanks:
+    """12d, host-side: every ``SPLIT`` case of ``tests/torch_mesh_worker``
+    stepped on a real (2, 2) mesh of four gloo ranks (``launch.mesh.spawn``
+    starts them, in a thread, so that 12a-c run meanwhile; cases and
+    results pass through a ``tempfile.mkdtemp()`` directory it removes);
+    ``finish`` holds each gathered (state, outputs) within its tolerance
+    of the same step on plain tensors
+    (``torch_mesh_worker.split_against_plain``)."""
+
+    def __init__(self, seed):
+        import tempfile
+        import threading
+
+        import torch
+
+        from repro_torch.launch import mesh as lm
+
+        sys.path.insert(0, str(ROOT / "tests"))
+        import torch_mesh_worker as worker
+
+        self.worker, self.seed = worker, seed
+        # the test helpers run one thread a process
+        self.threads = torch.get_num_threads()
+        self.dir = Path(tempfile.mkdtemp())
+        self.t0 = time.perf_counter()
+        self.errors = []
+        torch.save(worker.split_cases(seed), self.dir / "cases.pt")
+
+        def ranks():
+            try:
+                lm.spawn(worker.run, 4, args=(str(self.dir / "cases.pt"),
+                                              str(self.dir / "got.pt")))
+            except Exception as e:  # noqa: BLE001 — reported by finish
+                self.errors.append(e)
+            self.ranks_s = time.perf_counter() - self.t0
+
+        self.thread = threading.Thread(target=ranks)
+        self.thread.start()
+
+    def finish(self):
+        import shutil
+
+        import torch
+
+        worker = self.worker
+        try:
+            self.thread.join()
+            check(not self.errors, f"phase 12d: a gloo rank failed: "
+                  f"{str(self.errors[:1])[:600]}")
+            got = torch.load(self.dir / "got.pt", weights_only=False)
+            for case in worker.SPLIT:
+                try:
+                    worker.split_against_plain(got, cases=(case,),
+                                               seed=self.seed)
+                except AssertionError as e:
+                    check(False, f"phase 12d: {case} on the (2, 2) gloo "
+                          f"mesh differs from the plain step: "
+                          f"{str(e)[:400]}")
+        finally:
+            shutil.rmtree(self.dir, ignore_errors=True)
+            torch.set_num_threads(self.threads)
+        out = {"cases": list(worker.SPLIT), "ranks": 4, "mesh": [2, 2],
+               "within_tolerance": True, "ranks_s": self.ranks_s,
+               "s": time.perf_counter() - self.t0}
+        log(f"12d {len(worker.SPLIT)} split-mesh cases on four gloo ranks "
+            f"within tolerance of their plain steps ({self.ranks_s:.1f} s "
+            f"the ranks, {out['s']:.1f} s in all)")
+        return out
 
 
 def mesh_path(seed):
     """Phase 12: the cells of ``MESH_CELLS`` under a one-rank NCCL group
     and a 1x1 ("data", "model") mesh on the card, against their plain
     steps (12a); a supervised restore onto the mesh (12b); the dry run on
-    the host (12c).  No kernel of ``csrc`` lies on this path: the
-    launches are counted to show none ran."""
+    the host (12c); the split-mesh cases on four gloo ranks on the host
+    (12d, beside 12a-c).  No kernel of ``csrc`` lies on this path:
+    the launches are counted to show none ran."""
     import torch
 
     from repro_torch.kernels import ops
@@ -4355,6 +4495,9 @@ def mesh_path(seed):
     log(f"phase 12: {free} of {total} card bytes free, "
         f"{out['host_available_bytes_at_start']} host bytes available")
     ops.reset_launch_counts()
+    # 12d's host ranks from here on, beside 12a-c (four processes of one
+    # thread each on the host's cores; no card)
+    split = SplitRanks(seed + 7)
     with lm.process_group(1, device=dev):
         mesh = lm.make_mesh((1, 1), ("data", "model"), device_type="cuda")
         for cell in MESH_CELLS:
@@ -4368,6 +4511,9 @@ def mesh_path(seed):
     t0 = time.perf_counter()
     out["dry_run"] = mesh_dry_run(out["cells"]["olmo-1b train_4k"])
     out["s"]["dry_run"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["split"] = split.finish()
+    out["s"]["split_after_dry_run"] = time.perf_counter() - t0
     out["launches"] = ops.launch_counts()
     check(not any(out["launches"].values()),
           f"phase 12: a csrc kernel launched on the mesh path: "
@@ -4395,15 +4541,15 @@ def compare_runs(key, runs, kernels):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--live", type=int, default=1536,
+    ap.add_argument("--live", type=int, default=1024,
                     help="points linked into the f32 path's 10^6-slot table")
-    ap.add_argument("--runbook-n", type=int, default=768,
+    ap.add_argument("--runbook-n", type=int, default=512,
                     help="points of the quantized path's sliding window "
                          "(at most half of them live)")
-    ap.add_argument("--policy-n", type=int, default=640,
+    ap.add_argument("--policy-n", type=int, default=512,
                     help="points of the fresh and local paths' sliding "
                          "window")
-    ap.add_argument("--hnsw-n", type=int, default=256,
+    ap.add_argument("--hnsw-n", type=int, default=192,
                     help="points of the HNSW path's sliding window")
     args = ap.parse_args(argv)
 

@@ -17,7 +17,8 @@ collective moves data), and the step runs eagerly under
 
 and records memory / FLOPs / collective traffic + the three roofline terms
 (H100 model, ``cost.py``) to
-``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``.  A leaf whose
+``experiments/dryrun_torch/<arch>__<shape>__<mesh>__torch<X.Y>.json``
+(the record's ``torch`` field in full).  A leaf whose
 dims do not divide its mesh axes fails its cell, as ``jit`` refuses such an
 argument.  ``out_shardings`` is checked against the outputs' ranks; the
 outputs themselves keep the placements the step's ops give them.
@@ -173,9 +174,17 @@ def run_cell(spec, shape, *, multi_pod: bool = False, mesh_shape=None,
     return rec
 
 
+def torch_tag() -> str:
+    """``torch<major>.<minor>`` of the PyTorch that runs the dry run: its
+    DTensor's strategies decide a cell's collectives, so records of two
+    versions stand side by side."""
+    return "torch" + ".".join(torch.__version__.split("+")[0]
+                              .split(".")[:2])
+
+
 def cell_path(arch: str, shape: str, mesh_name: str) -> Path:
     safe = arch.replace("/", "_")
-    return OUT_DIR / f"{safe}__{shape}__{mesh_name}.json"
+    return OUT_DIR / f"{safe}__{shape}__{mesh_name}__{torch_tag()}.json"
 
 
 def main(argv=None) -> None:

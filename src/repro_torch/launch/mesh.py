@@ -14,6 +14,13 @@ behind):
     the host only: its mesh's device type is the CPU.
   * ``process_group(1)``: a real one-rank group for real steps, NCCL on
     the card and gloo on the CPU, over an in-process store (no port).
+  * ``process_group(n, rank=r, init_method=url)``: rank ``r`` of a real
+    group of ``n`` ranks, one process each, which meet at ``url`` (a
+    ``file://`` store, or any URL ``init_process_group`` takes): gloo on
+    the CPU, NCCL with one card per rank (rank ``r`` on card ``r``).  A
+    group of more ranks than cards raises before any rank waits for the
+    others (NCCL cannot put two ranks on one card).  ``spawn`` starts the
+    ``n`` local processes and their rendezvous.
 
 ``make_production_mesh`` / ``make_mesh`` build a mesh with the reference's
 shapes and axis names over the group that is up.
@@ -33,7 +40,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -47,11 +54,15 @@ PRODUCTION = {
 
 @contextlib.contextmanager
 def process_group(world_size: int = 1, *, fake: bool = False,
-                  device=None):
+                  device=None, rank: int = 0,
+                  init_method: Optional[str] = None):
     """The default process group for a mesh of ``world_size`` devices, torn
     down on exit.  ``fake``: a fake group (host-only, no collective moves
-    data); else a real one-rank group, NCCL where ``device`` is a card
-    (default) and gloo on the CPU."""
+    data); else a real group in which this process is rank ``rank``, NCCL
+    where ``device`` is a card (default) and gloo on the CPU.  One rank
+    meets itself over an in-process store; more ranks meet at
+    ``init_method``, each in its own process (``spawn``), on card
+    ``rank`` unless ``device`` names one."""
     import torch.distributed as dist
 
     if dist.is_initialized():
@@ -67,19 +78,72 @@ def process_group(world_size: int = 1, *, fake: bool = False,
         dist.init_process_group("fake", store=FakeStore(),
                                 world_size=world_size, rank=0)
     else:
-        if world_size != 1:
-            raise ValueError("a real group here has one rank; NCCL cannot "
-                             "put two ranks on one card")
+        if not 0 <= rank < world_size:
+            raise ValueError(f"rank {rank} of a group of {world_size}")
+        if world_size > 1 and init_method is None:
+            raise ValueError(f"a group of {world_size} ranks needs a "
+                             f"rendezvous (init_method, e.g. a file:// "
+                             f"store; launch.mesh.spawn makes one)")
         dev = torch.device("cuda" if device is None else device)
+        _check_cards(world_size, dev)
         backend = "nccl" if dev.type == "cuda" else "gloo"
-        if dev.type == "cuda" and dev.index is not None:
-            torch.cuda.set_device(dev)
-        dist.init_process_group(backend, store=dist.HashStore(),
-                                world_size=1, rank=0)
+        if dev.type == "cuda":
+            index = dev.index if dev.index is not None else (
+                rank if world_size > 1 else None)
+            if index is not None:
+                torch.cuda.set_device(index)
+        if init_method is None:
+            dist.init_process_group(backend, store=dist.HashStore(),
+                                    world_size=1, rank=0)
+        else:
+            dist.init_process_group(backend, init_method=init_method,
+                                    world_size=world_size, rank=rank)
     try:
         yield
     finally:
         dist.destroy_process_group()
+
+
+def _check_cards(world_size: int, dev) -> None:
+    if dev.type == "cuda" and world_size > torch.cuda.device_count():
+        raise ValueError(
+            f"a group of {world_size} ranks on cards needs {world_size} "
+            f"cards; this machine has {torch.cuda.device_count()} (NCCL "
+            f"cannot put two ranks on one card)")
+
+
+def spawn(fn, world_size: int, args=(), *, device="cpu") -> None:
+    """``fn(rank, world_size, *args)`` in ``world_size`` new local
+    processes, each inside ``process_group(world_size, rank=rank, ...)``:
+    one real group, gloo on the CPU (``device="cpu"``) or NCCL with rank
+    ``r`` on card ``r`` (``device="cuda"``), whose ranks meet over a file
+    store in a new temporary directory, removed afterwards.  Returns when
+    every rank has returned; a rank that raises ends the others and
+    raises here.  ``fn`` must be importable by name (a module's
+    function)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    dev = torch.device(device)
+    _check_cards(world_size, dev)
+    d = tempfile.mkdtemp(prefix="mesh_rendezvous_")
+    try:
+        mp.spawn(_rank_main, nprocs=world_size, join=True,
+                 args=(world_size, f"file://{os.path.join(d, 'store')}",
+                       dev.type, fn, tuple(args)))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _rank_main(rank, world_size, init_method, device_type, fn, args):
+    dev = (torch.device("cuda", rank) if device_type == "cuda"
+           else torch.device(device_type))
+    with process_group(world_size, device=dev, rank=rank,
+                       init_method=init_method):
+        fn(rank, world_size, *args)
 
 
 def make_mesh(shape, axes, device_type: str = "cpu"):
@@ -195,4 +259,4 @@ def local_bytes(tree) -> int:
 
 __all__ = ["NamedSharding", "PRODUCTION", "local_bytes", "make_mesh",
            "make_production_mesh", "place", "place_abstract", "place_named",
-           "process_group", "shardify"]
+           "process_group", "shardify", "spawn"]

@@ -21,7 +21,7 @@ import dataclasses
 import torch
 
 from ..core.types import resolve_device
-from .layers import cross_entropy_loss
+from .layers import cross_entropy_loss, take_on_shards
 from .recsys import _normal, _segment_sum, take_rows
 
 
@@ -74,8 +74,13 @@ def _sym_norm_coef(src, dst, n_nodes: int):
     deg = _segment_sum(torch.ones_like(dst, dtype=torch.float32), dst,
                        n_nodes) + 1.0
     inv_sqrt = torch.rsqrt(deg)
-    coef = inv_sqrt[_clamped(src, n_nodes)] * inv_sqrt[_clamped(dst, n_nodes)]
+    coef = (take_on_shards(inv_sqrt, src, _clamped_rows)
+            * take_on_shards(inv_sqrt, dst, _clamped_rows))
     return coef, inv_sqrt
+
+
+def _clamped_rows(ids, n: int):
+    return _clamped(ids, n), None
 
 
 def _clamped(ids, n: int):

@@ -51,6 +51,174 @@ def constrain(x, spec):
     return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
 
 
+def _placed(x, mesh):
+    """``x`` itself if a DTensor, else ``x`` replicated on ``mesh``."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if is_dtensor(x):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _from_local(local, mesh, placements, shape):
+    """A DTensor of global ``shape`` over each device's ``local`` (made
+    contiguous: the DTensor states a contiguous stride for its shard)."""
+    from torch.distributed.tensor import DTensor
+
+    shape = tuple(shape)
+    return DTensor.from_local(local.contiguous(), mesh, placements,
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
+def take_on_shards(table, ids, fix=None):
+    """Rows of ``table`` (dim 0) at ``ids``, of shape ``ids.shape +
+    table.shape[1:]``.  ``fix(ids, n)`` gives ``(rows, nan)``: the row of
+    each id in ``[0, n)`` and a mask of the ids whose rows are NaN (or
+    None); default the ids themselves.
+
+    Plain tensors take the rows as they are.  Where either is a DTensor,
+    the lookup runs on each device's local tensors, so its arithmetic is
+    the plain one's and no index op meets DTensor's sharding propagation
+    (PyTorch 2.11's has no strategy for an indexed table's gradient,
+    ``index_put``, with split values).  On each mesh dim:
+
+      * a table split over its rows, with fewer ids than rows (an
+        embedding table): the ids are gathered and each device looks up
+        those of its own rows (zeros elsewhere), a partial sum that meets
+        on the ids' split, or splits the rows' first dim where the ids
+        have none; its gradient is each device's own rows';
+      * else the ids keep their split and the rows follow it, the table
+        whole along dim 0 (gathered: fewer rows than ids, e.g. a graph's
+        nodes under its edges); its gradient is a partial sum, brought
+        back to the table's placements;
+      * a split of another table dim is kept where the ids are whole."""
+    fix = fix or _as_rows
+    if not (is_dtensor(table) or is_dtensor(ids)):
+        return _take_local(table, ids, fix, table.shape[0], None)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    mesh = (table if is_dtensor(table) else ids).device_mesh
+    table, ids = _placed(table, mesh), _placed(ids, mesh)
+    by_rows = ids.numel() < table.shape[0]
+    t_pl, i_pl, out_pl, grad_pl, final_pl = [], [], [], [], []
+    rows_split = 1
+    for m, (tp, ip) in enumerate(zip(table.placements, ids.placements)):
+        if by_rows and tp == Shard(0):
+            t_pl.append(tp)
+            i_pl.append(Replicate())
+            out_pl.append(Partial())
+            grad_pl.append(tp)
+            if type(ip) is Shard:
+                final_pl.append(ip)
+            elif ids.shape[0] % (rows_split * mesh.size(m)) == 0:
+                final_pl.append(Shard(0))
+            else:
+                final_pl.append(Replicate())
+        elif type(ip) is Shard:
+            t_pl.append(Replicate())
+            i_pl.append(ip)
+            out_pl.append(ip)
+            grad_pl.append(Partial())
+            final_pl.append(ip)
+        elif type(tp) is Shard and tp.dim > 0:
+            t_pl.append(tp)
+            i_pl.append(Replicate())
+            out_pl.append(Shard(ids.ndim + tp.dim - 1))
+            grad_pl.append(tp)
+            final_pl.append(out_pl[-1])
+        else:
+            t_pl.append(Replicate())
+            i_pl.append(Replicate())
+            out_pl.append(Replicate())
+            grad_pl.append(Replicate())
+            final_pl.append(Replicate())
+        if final_pl[-1] == Shard(0):
+            rows_split *= mesh.size(m)
+    lo = None
+    if Shard(0) in t_pl:
+        lo = compute_local_shape_and_global_offset(table.shape, mesh,
+                                                   t_pl)[1][0]
+    local = _take_local(
+        table.redistribute(mesh, t_pl).to_local(grad_placements=grad_pl),
+        ids.redistribute(mesh, i_pl).to_local(), fix, table.shape[0], lo)
+    out = _from_local(local, mesh, out_pl,
+                      tuple(ids.shape) + tuple(table.shape[1:]))
+    return out if out_pl == final_pl else out.redistribute(mesh, final_pl)
+
+
+def _as_rows(ids, n):
+    return ids, None
+
+
+def _take_local(table, ids, fix, n, lo):
+    """``take_on_shards`` on one device: ``table`` holds the global rows
+    ``lo, lo + 1, ...`` of ``n`` (all of them where ``lo`` is None); a row
+    held elsewhere is zeros."""
+    rows, nan = fix(ids, n)
+    if lo is None:
+        out = table[rows]
+    else:
+        rows = rows - lo
+        mine = (rows >= 0) & (rows < table.shape[0])
+        out = table[rows.clamp(0, table.shape[0] - 1)].masked_fill(
+            ~mine.unsqueeze(-1), 0.0)
+    # the NaN fill in place on the gathered rows: it spares a second copy
+    # of them, 4 E d bytes for the GCN's edge messages (11.6 GB at
+    # ogb_products' 61,859,328 edges and its last layer's 47 classes).
+    # Under autograd their gradient is dropped, as ``jnp.take``'s is
+    return out if nan is None else out.masked_fill_(nan.unsqueeze(-1),
+                                                    float("nan"))
+
+
+def add_on_shards(add, src, idx):
+    """``add(src, idx)``: ``src``'s rows (dim 0) summed into the rows that
+    ``idx`` (one entry a row of ``src``) picks, of shape ``(n,) +
+    src.shape[1:]`` (a segment sum, an ``index_add``).  Plain tensors go to
+    ``add`` as they are.  Where either is a DTensor, ``add`` runs on each
+    device's local rows (PyTorch 2.11 has no ``index_add`` strategy): idx
+    is brought to src's split of dim 0, and the sum is a partial one over
+    the mesh dims that split src's rows (it meets where a later op needs
+    it; an integer one at once) and split as src on its other dims."""
+    if not (is_dtensor(src) or is_dtensor(idx)):
+        return add(src, idx)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = (src if is_dtensor(src) else idx).device_mesh
+    src, idx = _placed(src, mesh), _placed(idx, mesh)
+    s_pl, i_pl, out_pl, grad_pl = [], [], [], []
+    for sp in src.placements:
+        if type(sp) is Shard and sp.dim == 0:
+            s_pl.append(sp)
+            i_pl.append(Shard(0))
+            out_pl.append(Partial())
+            grad_pl.append(sp)
+        elif type(sp) is Shard or sp.is_partial():
+            s_pl.append(sp)
+            i_pl.append(Replicate())
+            out_pl.append(sp)
+            grad_pl.append(sp if type(sp) is Shard else Replicate())
+        else:
+            s_pl.append(Replicate())
+            i_pl.append(Replicate())
+            out_pl.append(Replicate())
+            grad_pl.append(Replicate())
+    local = add(src.redistribute(mesh, s_pl).to_local(
+        grad_placements=grad_pl), idx.redistribute(mesh, i_pl).to_local())
+    out = _from_local(local, mesh, out_pl,
+                      (local.shape[0],) + tuple(src.shape[1:]))
+    if out.dtype.is_floating_point or Partial() not in out_pl:
+        return out
+    # an integer sum (a count) meets at once: DTensor's ops on a pending
+    # integer sum may promote it (a cumsum of one comes back float32)
+    return out.redistribute(mesh, [Replicate() if p == Partial() else p
+                                   for p in out_pl])
+
+
 def rms_norm(x, weight, eps=1e-6):
     xf = x.to(_F32)
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
@@ -224,11 +392,22 @@ def gqa_attention(q, k, v, *, causal=True, q_offset=0, kv_len=None,
     """Dispatch between plain and chunked attention by sequence length;
     DTensors go device by device (``_sharded_attention``) unless the keys
     are split over their sequence (a decode cache), where DTensor's own
-    ops keep that split."""
-    if is_dtensor(q) and not _sequence_split(k):
-        return _sharded_attention(q, k, v, causal=causal, q_offset=q_offset,
-                                  kv_len=kv_len,
-                                  chunked_threshold=chunked_threshold)
+    ops keep that split and q keeps only its batch split: the scores'
+    flatten of (batch, KV heads) must not meet a split KV-head axis, which
+    PyTorch 2.11's DTensor cannot flatten."""
+    if is_dtensor(q):
+        if not _sequence_split(k):
+            return _sharded_attention(q, k, v, causal=causal,
+                                      q_offset=q_offset, kv_len=kv_len,
+                                      chunked_threshold=chunked_threshold)
+        from torch.distributed.tensor import Replicate, Shard
+
+        # its local block made contiguous: the scores' reshape views the
+        # local tensor where the global strides allow, and PyTorch 2.11's
+        # gathered block may be a strided view
+        pl = [p if p == Shard(0) else Replicate() for p in q.placements]
+        q = _from_local(q.redistribute(q.device_mesh, pl).to_local(),
+                        q.device_mesh, pl, q.shape)
     s, t = q.shape[1], k.shape[1]
     if s == t and s > chunked_threshold and kv_len is None:
         return _chunked_attention(q, k, v, causal=causal)
@@ -264,7 +443,7 @@ def _sharded_attention(q, k, v, *, causal, q_offset, kv_len,
     ``gqa_attention`` on its own block (the same values as on the whole
     tensors).  This spares DTensor the strided splits of the reshapes
     inside, which its redistribution planner searches at length."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor import Replicate, Shard
 
     mesh = q.device_mesh
     layout = [p if type(p) is Shard and p.dim in (0, 2) else Replicate()
@@ -274,21 +453,11 @@ def _sharded_attention(q, k, v, *, causal, q_offset, kv_len,
     ql, kl, vl = (_ContiguousGrad.apply(
         x.redistribute(mesh, layout).to_local()) for x in (q, k, v))
     if kv_len is not None:
-        if not is_dtensor(kv_len):
-            kv_len = DTensor.from_local(kv_len, mesh,
-                                        [Replicate()] * mesh.ndim,
-                                        run_check=False)
-        kv_len = kv_len.redistribute(mesh, [
+        kv_len = _placed(kv_len, mesh).redistribute(mesh, [
             p if p == Shard(0) else Replicate() for p in layout]).to_local()
-    # contiguous: the DTensor states a contiguous stride for its shard
     out = gqa_attention(ql, kl, vl, causal=causal, q_offset=q_offset,
-                        kv_len=kv_len,
-                        chunked_threshold=chunked_threshold).contiguous()
-    shape = q.shape
-    return DTensor.from_local(out, mesh, layout, run_check=False,
-                              shape=shape,
-                              stride=torch.empty(shape, device="meta")
-                              .stride())
+                        kv_len=kv_len, chunked_threshold=chunked_threshold)
+    return _from_local(out, mesh, layout, q.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -329,6 +498,7 @@ def cross_entropy_loss(logits, labels, ignore_id: int = -1):
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
 
 
-__all__ = ["apply_norm", "apply_rope", "constrain", "cross_entropy_loss",
-           "gqa_attention", "is_dtensor", "matmul_f32",
-           "nonparam_layer_norm", "rms_norm", "rope_freqs", "swiglu"]
+__all__ = ["add_on_shards", "apply_norm", "apply_rope", "constrain",
+           "cross_entropy_loss", "gqa_attention", "is_dtensor", "matmul_f32",
+           "nonparam_layer_norm", "rms_norm", "rope_freqs", "swiglu",
+           "take_on_shards"]

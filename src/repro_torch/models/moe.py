@@ -23,7 +23,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from .layers import _softmax, constrain
+from .layers import _softmax, add_on_shards, constrain, take_on_shards
 from .recsys import _normal, _top_k
 
 
@@ -106,18 +106,17 @@ def _moe_once(params, x, cfg: MoEConfig, dp_spec=None, ep_spec=None):
     # load-balancing aux loss (Switch): E * sum_e f_e * p_e
     me = torch.mean(probs, dim=0)
     flat_e = top_i.reshape(-1).long()                        # (T*k,)
-    # the adds and scatters out of place, into buffers made from the
-    # routed tensors (DTensors where the tokens are); they are (E,) and
-    # (T*k,) long
-    ce = probs.new_zeros((e,)).index_add(
-        0, flat_e, probs.new_full((t * k,), 1.0 / (t * k)))
+    # the adds on each device's local rows where the tokens are DTensors
+    # (``add_on_shards``); the scatters out of place, into buffers made
+    # from the routed tensors; they are (E,) and (T*k,) long
+    ce = add_on_shards(_count_into(e), torch.full_like(
+        flat_e, 1.0 / (t * k), dtype=probs.dtype), flat_e)
     aux = cfg.router_aux_weight * e * torch.sum(me * ce)
 
     # --- rank tokens within each expert (stable by token order) ------------
     order = torch.sort(flat_e, stable=True).indices
     sorted_e = flat_e[order]
-    counts = flat_e.new_zeros((e,)).index_add(0, flat_e,
-                                              torch.ones_like(flat_e))
+    counts = add_on_shards(_count_into(e), torch.ones_like(flat_e), flat_e)
     group_start = torch.cumsum(counts, 0) - counts
     rank_sorted = torch.arange(t * k, device=dev) - group_start[sorted_e]
     rank = torch.empty_like(rank_sorted).scatter(0, order, rank_sorted)
@@ -131,7 +130,8 @@ def _moe_once(params, x, cfg: MoEConfig, dp_spec=None, ep_spec=None):
     inv = slot.new_full((e * cap + 1,), t).scatter(0, slot,
                                                    token_of)[:e * cap]
     filled = inv < t
-    buf = torch.where(filled[:, None], x[inv.clamp(max=t - 1)], 0.0)
+    buf = torch.where(filled[:, None],
+                      take_on_shards(x, inv.clamp(max=t - 1)), 0.0)
     buf = constrain(buf.reshape(e, cap, d), ep_spec)
 
     # --- expert computation (batched SwiGLU over the expert axis) ----------
@@ -147,11 +147,19 @@ def _moe_once(params, x, cfg: MoEConfig, dp_spec=None, ep_spec=None):
     w_tk = top_p.to(x.dtype)
     out = torch.zeros((t, d), dtype=x.dtype, device=dev)
     for j in range(k):
-        rows = constrain(out_buf[slot_tk[:, j].clamp(max=e * cap - 1)],
-                         dp_spec)
+        rows = constrain(take_on_shards(
+            out_buf, slot_tk[:, j].clamp(max=e * cap - 1)), dp_spec)
         out = out + torch.where(keep_tk[:, j][:, None],
                                 rows * w_tk[:, j][:, None], 0.0)
     return constrain(out, dp_spec), aux
+
+
+def _count_into(n: int):
+    """``src`` summed into ``n`` bins by ``idx``."""
+    def add(src, idx):
+        return src.new_zeros((n,)).index_add_(0, idx, src)
+
+    return add
 
 
 __all__ = ["MoEConfig", "init_moe_params", "moe_ffn"]

@@ -30,7 +30,7 @@ from torch import nn
 
 from ..core.types import resolve_device
 from ..kernels.ref import stable_topk_smallest
-from .layers import is_dtensor
+from .layers import add_on_shards, is_dtensor, take_on_shards
 
 # Criteo-Kaggle per-field cardinalities (DLRM RM2 regime, public counts).
 CRITEO_KAGGLE_VOCABS = (
@@ -53,38 +53,36 @@ CRITEO_TB_VOCABS = (
 
 def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``jnp.take(table, ids, axis=0)``: rows ``ids.shape + (d,)``; an id in
-    ``[-V, 0)`` wraps to ``V + id``, any other out-of-range id gives NaN."""
-    v = table.shape[0]
+    ``[-V, 0)`` wraps to ``V + id``, any other out-of-range id gives NaN.
+    On DTensors it runs on each device's local tensors
+    (``layers.take_on_shards``)."""
+    return take_on_shards(table, ids, _jnp_rows)
+
+
+def _jnp_rows(ids, v: int):
     ids = ids.long()
     ids = torch.where(ids < 0, ids + v, ids)
-    ok = (ids >= 0) & (ids < v)
-    # the NaN fill in place on the gathered rows: it spares a second copy
-    # of them, 4 E d bytes for the GCN's edge messages (11.6 GB at
-    # ogb_products' 61,859,328 edges and its last layer's 47 classes).
-    # Under autograd their gradient is dropped, as ``jnp.take``'s is.
-    # DTensor rows (a pending sum, from a table split over rows) are
-    # filled out of place, which their placement needs
-    rows = table[ids.clamp(0, v - 1)]
-    if is_dtensor(rows):
-        return rows.masked_fill(~ok.unsqueeze(-1), float("nan"))
-    return rows.masked_fill_(~ok.unsqueeze(-1), float("nan"))
+    return ids.clamp(0, v - 1), (ids < 0) | (ids >= v)
 
 
 def _segment_sum(x, segment_ids, n_segments: int):
     """``jax.ops.segment_sum``: rows with a segment id outside ``[0,
-    n_segments)`` are dropped (routed to a spare row, then cut off).  The
-    sum's buffer is made from ``x`` (a DTensor where ``x`` is one: an
-    in-place add cannot write DTensors into a plain buffer)."""
+    n_segments)`` are dropped (routed to a spare row, then cut off).  On
+    DTensors it runs on each device's local rows, a partial sum where the
+    rows are split (``layers.add_on_shards``)."""
+    return add_on_shards(
+        lambda xl, sl: _segment_sum_local(xl, sl, n_segments), x,
+        segment_ids)
+
+
+def _segment_sum_local(x, segment_ids, n_segments: int):
     seg = segment_ids.long()
     seg = torch.where((seg >= 0) & (seg < n_segments), seg,
                       torch.full_like(seg, n_segments))
+    # in place: it spares a second (n_segments + 1, d) buffer, 4 (N + 1) d
+    # bytes (0.46 GB at ogb_products' 2,449,408 nodes and its last layer's
+    # d = 47)
     out = x.new_zeros((n_segments + 1,) + tuple(x.shape[1:]))
-    # in place on a plain buffer: it spares a second (n_segments + 1, d)
-    # buffer, 4 (N + 1) d bytes (0.46 GB at ogb_products' 2,449,408 nodes
-    # and its last layer's d = 47).  Out of place on a DTensor, whose
-    # in-place scatter may change its placement without moving its shard
-    if is_dtensor(out):
-        return out.index_add(0, seg, x)[:n_segments]
     return out.index_add_(0, seg, x)[:n_segments]
 
 
@@ -263,9 +261,13 @@ def dlrm_forward(params, cfg: DLRMConfig, dense, sparse):
             for i in range(cfg.n_sparse)]
     z = torch.stack([bot] + embs, dim=1)                      # (B, F, d)
     zz = torch.bmm(z, z.transpose(1, 2))                      # (B, F, F)
-    f = z.shape[1]
+    b, f = z.shape[:2]
     iu, ju = torch.triu_indices(f, f, offset=1, device=z.device)
-    inter = zz[:, iu, ju]                                     # (B, F(F-1)/2)
+    # zz[:, iu, ju] as a gather over the flattened pairs: the same values,
+    # and a gradient (a scatter-add) that DTensor propagates on PyTorch
+    # 2.11 too (the indexing's, index_put with a None index, it cannot)
+    inter = torch.gather(zz.reshape(b, f * f), 1,
+                         (iu * f + ju).expand(b, -1))         # (B, F(F-1)/2)
     top_in = torch.cat([bot, inter], dim=1)
     return _mlp(params["top"], top_in)[:, 0]
 
@@ -404,24 +406,57 @@ def _row_nll(u_rows, i, row0: int):
     return lse - ll
 
 
-def two_tower_loss(params, cfg: TwoTowerConfig, batch):
-    """In-batch sampled softmax with logQ-style uniform correction:
-    mean over rows of logsumexp(u_r . i) - u_r . i_r.  Rows go in blocks
-    of at most ``LOGIT_BLOCK`` logits; under autograd each block is
-    recomputed in the backward (``torch.utils.checkpoint``), so one block's
-    logits are held at a time.  Each row's arithmetic is the unblocked
-    one's."""
-    u, i = two_tower_embed(params, cfg, batch["user_ids"], batch["item_ids"])
+def _nll_rows(u, i, row0: int):
+    """The in-batch NLL of each row of ``u`` against every row of ``i``,
+    row r's own item at row ``row0 + r`` of ``i``: rows go in blocks of at
+    most ``LOGIT_BLOCK`` logits; under autograd each block is recomputed in
+    the backward (``torch.utils.checkpoint``), so one block's logits are
+    held at a time.  Each row's arithmetic is the unblocked one's."""
     b = u.shape[0]
-    rows = max(1, LOGIT_BLOCK // b)
+    rows = max(1, LOGIT_BLOCK // i.shape[0])
     if not torch.is_grad_enabled() or rows >= b:
-        return torch.mean(torch.cat([_row_nll(u[r:r + rows], i, r)
-                                     for r in range(0, b, rows)]))
+        return torch.cat([_row_nll(u[r:r + rows], i, row0 + r)
+                          for r in range(0, b, rows)])
     from torch.utils.checkpoint import checkpoint
 
-    return torch.mean(torch.cat([
-        checkpoint(_row_nll, u[r:r + rows], i, r, use_reentrant=False)
-        for r in range(0, b, rows)]))
+    return torch.cat([
+        checkpoint(_row_nll, u[r:r + rows], i, row0 + r, use_reentrant=False)
+        for r in range(0, b, rows)])
+
+
+def _nll_on_shards(u, i):
+    """``_nll_rows`` of DTensors, on each device's local rows: ``u`` keeps
+    its split of the batch, ``i`` is whole on every device (B x d, 64 MiB
+    at the train batch), and each device's rows run against it at their
+    global offset (the diagonal of a split logits block, whose gradient
+    PyTorch 2.11's DTensor cannot propagate, and the row blocks, which
+    would gather ``u``, stay on the device)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    from .layers import _from_local, _placed
+
+    mesh = (u if is_dtensor(u) else i).device_mesh
+    u, i = _placed(u, mesh), _placed(i, mesh)
+    u_pl = [p if p == Shard(0) else Replicate() for p in u.placements]
+    i_grad = [Partial() if p == Shard(0) else Replicate() for p in u_pl]
+    row0 = compute_local_shape_and_global_offset(u.shape, mesh, u_pl)[1][0]
+    nll = _nll_rows(
+        u.redistribute(mesh, u_pl).to_local(grad_placements=u_pl),
+        i.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+            grad_placements=i_grad), row0)
+    return _from_local(nll, mesh, u_pl, (u.shape[0],))
+
+
+def two_tower_loss(params, cfg: TwoTowerConfig, batch):
+    """In-batch sampled softmax with logQ-style uniform correction:
+    mean over rows of logsumexp(u_r . i) - u_r . i_r (``_nll_rows``; on
+    DTensors ``_nll_on_shards``)."""
+    u, i = two_tower_embed(params, cfg, batch["user_ids"], batch["item_ids"])
+    if is_dtensor(u) or is_dtensor(i):
+        return torch.mean(_nll_on_shards(u, i))
+    return torch.mean(_nll_rows(u, i, 0))
 
 
 def two_tower_score_candidates(params, cfg: TwoTowerConfig, user_ids,

@@ -42,7 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.types import resolve_device
 from .layers import (apply_norm, apply_rope, constrain, cross_entropy_loss,
-                     gqa_attention, is_dtensor)
+                     gqa_attention, is_dtensor, take_on_shards)
 from .moe import MoEConfig, init_moe_params, moe_ffn
 from .recsys import _normal
 
@@ -204,10 +204,14 @@ def layer_slices(layers, n_layers: int):
 
 def embed_lookup(embed, tokens):
     """``embed[tokens]`` as JAX indexes: a negative id wraps once, then
-    every id is clamped into range."""
-    v = embed.shape[0]
+    every id is clamped into range.  On DTensors it runs on each device's
+    local tensors (``layers.take_on_shards``)."""
+    return take_on_shards(embed, tokens, _embed_rows)
+
+
+def _embed_rows(tokens, v: int):
     ids = tokens.long()
-    return embed[torch.where(ids < 0, ids + v, ids).clamp_(0, v - 1)]
+    return torch.where(ids < 0, ids + v, ids).clamp_(0, v - 1), None
 
 
 # ---------------------------------------------------------------------------
@@ -276,13 +280,28 @@ def _fit_heads(q, n_kv: int):
 def _out_proj(attn, wo, x):
     """``einsum("bshx,hxd->bsd", attn, wo)``.  A DTensor ``attn`` is held
     on its layout for the gradient too (a redistribute that moves nothing
-    forward): a gradient split over heads would not unflatten into the
-    (KV, G) heads of the attention behind it."""
+    forward), before and after its (heads, head_dim) flatten: a gradient
+    split over heads would not unflatten into the (KV, G) heads of the
+    attention behind it, nor (on PyTorch 2.11) one split over the
+    flattened axis into (heads, head_dim)."""
     b, s = attn.shape[:2]
-    if is_dtensor(attn):
-        attn = attn.redistribute(attn.device_mesh, attn.placements)
-    return torch.matmul(attn.reshape(b, s, -1),
-                        wo.to(x.dtype).reshape(-1, wo.shape[-1]))
+    flat = _held(_held(attn).reshape(b, s, -1))
+    if is_dtensor(wo) and _splits_dim(wo, 1):
+        # wo (heads, head_dim, d) split over head_dim ("hd" attention
+        # sharding) gathered there: the flatten of (heads, head_dim) below
+        # cannot carry that split on PyTorch 2.11
+        from torch.distributed.tensor import Replicate, Shard
+
+        wo = wo.redistribute(wo.device_mesh, [
+            Replicate() if p == Shard(1) else p for p in wo.placements])
+    return torch.matmul(flat, wo.to(x.dtype).reshape(-1, wo.shape[-1]))
+
+
+def _held(x):
+    """A DTensor redistributed to its own placements (the identity forward),
+    so that its gradient comes back on them; any other tensor itself."""
+    return x.redistribute(x.device_mesh, x.placements) if is_dtensor(x) \
+        else x
 
 
 def _mlp_block(p, cfg: TransformerConfig, h):

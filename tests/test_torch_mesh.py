@@ -34,10 +34,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import (ATOL, RTOL, assert_logits_close,  # noqa: F401
-                          assert_train_step_close, cuda_device)
+import torch_mesh_worker as worker
+from torch_parity import cuda_device  # noqa: F401
 
-from repro_torch import convert
 from repro_torch.configs import all_archs, axes_of
 from repro_torch.configs.base import (MeshAxes, P, map_rules, placements,
                                       shard_shape)
@@ -45,9 +44,7 @@ from repro_torch.configs.families import (LM_PARAM_RULES, _resolve,
                                           lm_attn_rules)
 from repro_torch.launch import mesh as tmesh
 from repro_torch.models import layers as tl
-from repro_torch.models import transformer as tt
 from repro_torch.training.optimizer import tree_leaves, tree_map
-from repro_torch.training.tolerance import LOGITS, step_tolerance
 
 PROD = {"single": ((16, 16), ("data", "model")),
         "multi": ((2, 16, 16), ("pod", "data", "model"))}
@@ -319,6 +316,42 @@ def test_process_group_is_torn_down_and_not_nested():
     assert not dist.is_initialized()
 
 
+def test_real_group_needs_a_rendezvous_and_a_rank_in_it():
+    import torch.distributed as dist
+
+    for kw in ({}, {"rank": 4, "init_method": "file:///nonexistent"},
+               {"rank": -1, "init_method": "file:///nonexistent"}):
+        with pytest.raises(ValueError):
+            with tmesh.process_group(4, device="cpu", **kw):
+                pass
+    assert not dist.is_initialized()
+
+
+def test_real_four_rank_group_builds_the_mesh(tmp_path):
+    """``launch.mesh.spawn``: four processes join one real gloo group
+    through ``process_group(4, rank=r, init_method=...)``; each builds the
+    (2, 2) mesh at its own coordinates, an all-reduce meets every rank, a
+    second group cannot nest inside, and the parent is left with no
+    group."""
+    import torch.distributed as dist
+
+    tmesh.spawn(worker.group_probe, 4, args=(str(tmp_path),))
+    got = [torch.load(tmp_path / f"rank{r}.pt") for r in range(4)]
+    assert [g["rank"] for g in got] == [0, 1, 2, 3]
+    assert all(g["world"] == 4 and g["mesh_shape"] == (2, 2)
+               and g["names"] == ("data", "model") and g["sum"] == 6.0
+               and not g["nested"] for g in got)
+    assert [g["coords"] for g in got] == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    assert not dist.is_initialized()
+
+
+def test_spawn_raises_when_a_rank_fails():
+    """A rank that raises ends the group's other ranks (one waits at a
+    barrier) and raises in the caller instead of hanging."""
+    with pytest.raises(Exception):
+        tmesh.spawn(worker.fail_on_rank_one, 2)
+
+
 def test_constrain_is_the_identity_off_a_mesh(cpu_mesh):
     x = torch.arange(6.0).reshape(2, 3)
     assert tl.constrain(x, P("data", None)) is x
@@ -334,23 +367,8 @@ def test_constrain_is_the_identity_off_a_mesh(cpu_mesh):
 # ---------------------------------------------------------------------------
 
 
-def _np_case(t, shape, seed):
-    """The port's seeded state and inputs as numpy trees (a decode cache
-    filled with random values and lengths; bfloat16 moments kept)."""
-    gen = torch.Generator().manual_seed(seed)
-    state = t.init_state(shape, "cpu", gen)
-    inputs = t.make_inputs(shape, "cpu", gen)
-    dtypes = tree_map(lambda x: x.dtype, state)
-    state, inputs = (convert.params_to_numpy(state),
-                     convert.params_to_numpy(inputs))
-    if shape.kind == "decode":
-        rng = np.random.default_rng(seed)
-        c = state["cache"]
-        for f in ("k", "v"):
-            c[f] = rng.normal(size=c[f].shape).astype(np.float32)
-        c["len"] = rng.integers(1, c["k"].shape[2] - 1,
-                                size=c["len"].shape).astype(np.int32)
-    return state, dtypes, inputs
+_np_case = worker.np_case
+_to_port = worker.to_port
 
 
 def _to_ref(tree, dtypes=None):
@@ -360,13 +378,6 @@ def _to_ref(tree, dtypes=None):
         return tree_map(jnp.asarray, tree)
     return tree_map(lambda x, d: jnp.asarray(x).astype(jnp.bfloat16)
                     if d == torch.bfloat16 else jnp.asarray(x), tree, dtypes)
-
-
-def _to_port(tree, dtypes=None):
-    if dtypes is None:
-        return tree_map(lambda x: torch.from_numpy(np.array(x)), tree)
-    return tree_map(lambda x, d: torch.from_numpy(np.array(x)).to(d), tree,
-                    dtypes)
 
 
 def _local(tree):
@@ -435,48 +446,7 @@ def test_mesh_step_matches_reference(case, cpu_mesh):
                        (pstate, pout), (jstate, jout))
 
 
-def _assert_step_close(case, t, shape, state, dtypes, inputs, got, want):
-    """``got`` = the port's (state, outputs) within the tolerance of
-    ``want`` = the reference's or another port step's, by the cell's kind:
-    a train step by ``train_step_errors``, prefill logits and caches and
-    decode caches by ``LOGITS``, a decode's next token on the rows whose
-    top two logits (of the plain decode from ``state``) stand apart, and
-    recsys outputs by ``RTOL`` / ``ATOL`` (ids exactly)."""
-    (pstate, pout), (jstate, jout) = got, want
-    moe = getattr(getattr(t, "cfg", None), "moe", None) is not None
-    if shape.kind == "train":
-        tol = (step_tolerance(torch.bfloat16, moe, t.moment_dtype)
-               if t.family == "lm" else None)
-        assert_train_step_close(pstate, pout, jstate, jout, where=case,
-                                tol=tol)
-    elif shape.kind == "prefill":
-        for key, g, w in (
-                ("logits", pout["logits"], jout["logits"]),
-                ("k", pout["cache"]["k"], jout["cache"]["k"]),
-                ("v", pout["cache"]["v"], jout["cache"]["v"])):
-            assert_logits_close(g, w, torch.bfloat16, moe, f"{case} {key}")
-    elif shape.kind == "decode":
-        fresh = _to_port(state, dtypes)
-        logits, _ = tt.decode_step(fresh["params"], t.cfg, fresh["cache"],
-                                   _to_port(inputs)["tokens"])
-        top2 = torch.topk(logits.float(), 2, dim=-1).values
-        sure = (top2[:, 0] - top2[:, 1]) > LOGITS[torch.bfloat16][0] * \
-            float(logits.abs().max())
-        w = torch.from_numpy(np.array(jout["next_token"]))
-        assert torch.equal(pout["next_token"][sure], w[sure]), case
-        for f in ("k", "v"):
-            assert_logits_close(pstate["cache"][f], jstate["cache"][f],
-                                torch.bfloat16, moe, f"{case} {f}")
-    else:
-        assert sorted(pout) == sorted(jout)
-        for key in jout:
-            g, w = np.asarray(pout[key]), np.asarray(jout[key])
-            assert g.dtype == w.dtype and np.isfinite(g).all()
-            if np.issubdtype(w.dtype, np.floating):
-                np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL,
-                                           err_msg=f"{case} {key}")
-            else:
-                np.testing.assert_array_equal(g, w, err_msg=case)
+_assert_step_close = worker.assert_step_close
 
 
 # ---------------------------------------------------------------------------
@@ -484,41 +454,18 @@ def _assert_step_close(case, t, shape, state, dtypes, inputs, got, want):
 # ---------------------------------------------------------------------------
 
 
-# case -> (arch, shape, spec fields, cfg fields): reduced cells whose leaves
-# divide a (2, 2) mesh.  The LM's attention sharding by its heads at tp 2:
-# "kv" (2 KV heads), "q" (1 KV head, 4 query heads), "hd" (1 KV head, 3
-# query heads: head_dim split).  dlrm-rm2's and the GCN's whole-graph train
-# cells have leaves that do not divide (2, 2) (``test_torch_dryrun``'s
-# error records), so DLRM serves and the GCN trains on molecules.
-SPLIT = {
-    "olmo-1b:train_4k": ("olmo-1b", "train_4k", {}, {}),
-    "olmo-1b:decode_32k": ("olmo-1b", "decode_32k", {}, {}),
-    "olmo-1b:train_4k:q": ("olmo-1b", "train_4k", {}, {"n_kv_heads": 1}),
-    "olmo-1b:train_4k:hd": ("olmo-1b", "train_4k", {},
-                            {"n_heads": 3, "n_kv_heads": 1}),
-    "dlrm-rm2:serve_p99": ("dlrm-rm2", "serve_p99", {}, {}),
-    "two-tower-retrieval:retrieval_cand": (
-        "two-tower-retrieval", "retrieval_cand", {"two_phase_topk": True},
-        {}),
-    "gcn-cora:molecule": ("gcn-cora", "molecule", {}, {}),
-}
-SPLIT_AXES = dict(dp=("data",), fsdp="data", model="model", dp_size=2,
-                  model_size=2)
+SPLIT, SPLIT_AXES = worker.SPLIT, worker.SPLIT_AXES
 
 
 @pytest.fixture(scope="module")
 def split_mesh_runs(tmp_path_factory):
     """Every ``SPLIT`` case stepped once on a real (2, 2) mesh of four gloo
-    ranks (four spawned processes): case -> the gathered (state,
-    outputs).  Once a session: under pytest-xdist the first worker to need
-    it runs it, under a file lock in the session's temporary root, and the
-    others read its result."""
+    ranks (``launch.mesh.spawn``: four processes in one group): case ->
+    the gathered (state, outputs).  Once a session: under pytest-xdist the
+    first worker to need it runs it, under a file lock in the session's
+    temporary root, and the others read its result."""
     import fcntl
     import os
-
-    import torch.multiprocessing as mp
-
-    import torch_mesh_worker as worker
 
     root = tmp_path_factory.getbasetemp()
     if os.environ.get("PYTEST_XDIST_WORKER"):
@@ -528,18 +475,9 @@ def split_mesh_runs(tmp_path_factory):
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not (d / "got.pt").exists():
             d.mkdir(exist_ok=True)
-            cases = {}
-            for case, (arch, shape_name, spec_kw, cfg_kw) in SPLIT.items():
-                t = worker.spec_of(arch, spec_kw, cfg_kw)
-                state, dtypes, inputs = _np_case(
-                    t, t.shapes()[shape_name], seed=7)
-                cases[case] = (arch, shape_name, spec_kw, cfg_kw,
-                               _to_port(state, dtypes), _to_port(inputs))
-            torch.save(cases, d / "cases.pt")
-            mp.spawn(worker.run,
-                     args=(4, f"file://{d / 'store'}", str(d / "cases.pt"),
-                           str(d / "got.pt")),
-                     nprocs=4, join=True)
+            torch.save(worker.split_cases(), d / "cases.pt")
+            tmesh.spawn(worker.run, 4,
+                        args=(str(d / "cases.pt"), str(d / "got.pt")))
     return torch.load(d / "got.pt", weights_only=False)
 
 
@@ -554,13 +492,12 @@ def test_split_mesh_step_matches_plain_and_reference(case, split_mesh_runs):
     ``model_size`` = 2)."""
     import jax
 
-    import torch_mesh_worker as worker
     from repro.configs.base import MeshAxes as JMeshAxes
 
     arch, shape_name, spec_kw, cfg_kw = SPLIT[case]
     t = worker.spec_of(arch, spec_kw, cfg_kw)
     shape = t.shapes()[shape_name]
-    state, dtypes, inputs = _np_case(t, shape, seed=7)
+    state, dtypes, inputs = _np_case(t, shape, worker.SEED)
     taxes, jaxes = MeshAxes(**SPLIT_AXES), JMeshAxes(**SPLIT_AXES)
     step = t.make_step(shape, taxes)
     plain = step(_to_port(state, dtypes), _to_port(inputs))
@@ -577,6 +514,139 @@ def test_split_mesh_step_matches_plain_and_reference(case, split_mesh_runs):
         assert a.dtype == b.dtype and a.shape == b.shape, case
     _assert_step_close(case, t, shape, state, dtypes, inputs, got, plain)
     _assert_step_close(case, t, shape, state, dtypes, inputs, got, ref)
+
+
+# ---------------------------------------------------------------------------
+# (d) none of the forms PyTorch 2.11's DTensor refuses
+# ---------------------------------------------------------------------------
+
+# ops whose DTensor strategy PyTorch 2.11 (the card's) lacks or gets wrong
+# (2.13, this box's, runs them): an indexed tensor's gradient
+# (``index_put`` with split values or a None index), ``index_add`` (no
+# strategy), ``diagonal_backward`` (none)
+REFUSED_211 = ("aten::index_put", "aten::_index_put_impl_",
+               "aten::index_add", "aten::index_add_",
+               "aten::diagonal_backward")
+
+
+def _refused_211(func, args):
+    """Why PyTorch 2.11's DTensor refuses ``func(*args)``, or None: one of
+    ``REFUSED_211``; a view that 2.11 cannot make without a redistribution
+    (``_view_refused_211``); an ``index`` whose index tensor splits one dim
+    over two mesh dims."""
+    from torch.distributed.tensor import Shard
+
+    name = func._schema.name
+    if name in REFUSED_211:
+        return name
+    if name in ("aten::view", "aten::_unsafe_view", "aten::reshape") and \
+            tl.is_dtensor(args[0]) and isinstance(args[1], (list, tuple)) \
+            and _view_refused_211(args[0], args[1]):
+        return f"{name} {list(args[0].shape)} " \
+               f"{tuple(args[0].placements)} -> {list(args[1])}"
+    if name == "aten::index":
+        for ix in args[1]:
+            if tl.is_dtensor(ix):
+                dims = [p.dim for p in ix.placements if type(p) is Shard]
+                if len(dims) != len(set(dims)):
+                    return f"{name} with an index {tuple(ix.placements)}"
+    return None
+
+
+def _view_refused_211(x, size) -> bool:
+    """2.11's rule for a view of a DTensor (``_view_ops.py``'s
+    ``propagate_shape_and_sharding``): a flatten whose dims after the first
+    include a split one, or a split of a split dim whose first part does
+    not divide by the mesh dim that splits it."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor._ops._view_ops import (Flatten, InputDim,
+                                                         Split, view_groups)
+
+    split = {}
+    for m, p in enumerate(x.placements):
+        if type(p) is Shard:
+            split.setdefault(p.dim, []).append(x.device_mesh.size(m))
+
+    def first_dim(spec):
+        if isinstance(spec, InputDim):
+            return spec.input_dim
+        if isinstance(spec, Flatten):
+            return first_dim(spec.input_dims[0])
+        if isinstance(spec, Split) and spec.split_id == 0:
+            return first_dim(spec.input_dim)
+        return None
+
+    def refused(spec):
+        if isinstance(spec, Flatten):
+            return any(isinstance(d, InputDim) and d.input_dim in split
+                       for d in spec.input_dims[1:])
+        if isinstance(spec, Split):
+            d = first_dim(spec.input_dim)
+            return refused(spec.input_dim) or (
+                spec.split_id == 0 and d in split
+                and any(spec.group_shape[0] % m for m in split[d]))
+        return False
+
+    return any(refused(g) for g in view_groups(list(x.shape), list(size)))
+
+
+def _steps_clear_of_211(step, state, inputs):
+    """The ops of ``step(state, inputs)`` (forward and backward) that
+    meet a DTensor and a form of ``_refused_211``."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves as pt_leaves
+
+    found = []
+
+    class Guard(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if any(tl.is_dtensor(a) for a in pt_leaves((args, kwargs))):
+                why = _refused_211(func, args)
+                if why:
+                    found.append(why)
+            return func(*args, **kwargs)
+
+    with Guard():
+        step(state, inputs)
+    return found
+
+
+@pytest.mark.parametrize("case", [f"{a}:{s}" for a, s in CASES])
+def test_mesh_step_avoids_what_pytorch_2_11_refuses(case, cpu_mesh):
+    """Every reduced cell's ``make_step(shape, axes)`` on the 1x1 mesh
+    dispatches none of the DTensor forms that PyTorch 2.11 refuses (the
+    card's: the faults its one-rank card case and phase 12 met)."""
+    arch, shape_name = case.split(":")
+    t = all_archs()[arch].reduced()
+    shape = t.shapes()[shape_name]
+    axes = axes_of(cpu_mesh)
+    state, dtypes, inputs = _np_case(t, shape, seed=3)
+    m_state = tmesh.place(_to_port(state, dtypes),
+                          t.state_shardings(shape, axes), cpu_mesh)
+    m_inputs = tmesh.place(_to_port(inputs), t.input_shardings(shape, axes),
+                           cpu_mesh)
+    assert not _steps_clear_of_211(t.make_step(shape, axes), m_state,
+                                   m_inputs), case
+
+
+@pytest.mark.parametrize("case", list(SPLIT))
+def test_split_mesh_step_avoids_what_pytorch_2_11_refuses(case):
+    """Each ``SPLIT`` case on a fake (2, 2) mesh (meta local shards, as the
+    dry run runs it): no DTensor form that PyTorch 2.11 refuses, split
+    leaves included (a flatten of a split dim, an index split twice)."""
+    arch, shape_name, spec_kw, cfg_kw = SPLIT[case]
+    t = worker.spec_of(arch, spec_kw, cfg_kw)
+    shape = t.shapes()[shape_name]
+    with tmesh.process_group(4, fake=True):
+        mesh = tmesh.make_mesh((2, 2), ("data", "model"))
+        axes = axes_of(mesh)
+        state = tmesh.place_abstract(t.abstract_state(shape),
+                                     t.state_shardings(shape, axes), mesh)
+        inputs = tmesh.place_abstract(t.abstract_inputs(shape),
+                                      t.input_shardings(shape, axes), mesh)
+        found = _steps_clear_of_211(t.make_step(shape, axes), state, inputs)
+    assert not found, (case, found[:4])
 
 
 # ---------------------------------------------------------------------------
@@ -652,24 +722,13 @@ def test_restore_onto_another_layout(cpu_mesh, tmp_path):
 # ---------------------------------------------------------------------------
 
 
-# cells whose mesh step needs a DTensor strategy that PyTorch 2.11 (the
-# card's) lacks; there they raise a sharding-propagation error, which the
-# card test accepts for these cells only (2.13 runs them: the CPU cases)
-CARD_GAPS = {
-    ("dlrm-mlperf", "train_batch"): "index_put with a None index",
-    ("dlrm-rm2", "train_batch"): "index_put with a None index",
-    ("two-tower-retrieval", "train_batch"): "diagonal_backward",
-}
-
-
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("arch", ARCHS)
 def test_mesh_steps_on_card_equal_plain_steps(arch, cuda_device):
     """Under a one-rank NCCL group, every reduced cell with DTensor state on
     the card's 1x1 mesh against its plain step on the card: bitwise, but
     the GCN's train steps, whose scatter-adds (``index_add_``) sum in the
-    order the card's atomics take, within ``train_step_errors``; a cell of
-    ``CARD_GAPS`` may raise DTensor's sharding-propagation error."""
+    order the card's atomics take, within ``train_step_errors``."""
     from repro_torch.training.tolerance import train_step_errors
 
     t = all_archs()[arch].reduced()
@@ -685,13 +744,7 @@ def test_mesh_steps_on_card_equal_plain_steps(arch, cuda_device):
             m_inputs = tmesh.place(inputs, t.input_shardings(shape, axes),
                                    mesh)
             want_state, want = t.make_step(shape)(state, inputs)
-            try:
-                got_state, got = t.make_step(shape, axes)(m_state, m_inputs)
-            except (RuntimeError, NotImplementedError) as e:
-                assert (arch, shape.name) in CARD_GAPS, (arch, shape.name, e)
-                assert "strategy" in str(e).lower() or \
-                    "Strategy" in str(e), e
-                continue
+            got_state, got = t.make_step(shape, axes)(m_state, m_inputs)
             if t.family == "gnn":
                 _, bad = train_step_errors(
                     _local(got_state), float(got["loss"].to_local()
@@ -704,3 +757,22 @@ def test_mesh_steps_on_card_equal_plain_steps(arch, cuda_device):
                             tree_leaves(_local((got_state, got)))):
                 assert a.dtype == b.dtype and torch.equal(a, b), (
                     arch, shape.name)
+
+
+@pytest.mark.requires_cuda
+def test_group_above_the_card_count_raises(cuda_device, tmp_path):
+    """A real group of more ranks than cards refuses at once, in
+    ``process_group`` and in ``spawn`` (before any process starts),
+    instead of waiting in NCCL's rendezvous."""
+    import torch.distributed as dist
+
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match="cards"):
+        with tmesh.process_group(n, device="cuda", rank=0,
+                                 init_method=f"file://{tmp_path / 'store'}"):
+            pass
+    with pytest.raises(ValueError, match="cards"):
+        tmesh.spawn(worker.group_probe, n, args=(str(tmp_path),),
+                    device="cuda")
+    assert not dist.is_initialized()
+    assert not list(tmp_path.glob("rank*.pt"))
