@@ -25,6 +25,16 @@ Phases, any failure exits non-zero:
      on the card, a serial bootstrap, batched insert windows, Recall@10,
      in-place deletes with the Alg-6 sweep, reinserts, Recall@10 again, a
      timed query-only phase — with every kernel's launches counted;
+ 3c. on phase 3's index, ``search_batch_vmap`` (the reference's lockstep
+     per-query engine, ``backend="cuda"``: kernel 1 a hop) over its 1,024
+     queries in batches of 256, in turns with ``search_batch`` at
+     ``hop_fused = 0`` and H = 4: on the Gaussian queries the ids, visited
+     lists and counters equal H = 0's; on grid-valued queries over the same
+     graph with grid-valued rows every field equals H = 4's and, for 64
+     queries, the plain run's on a CPU copy; one kernel-1 launch a hop
+     (plus the start's) and no other; QPS of the three engines, and one
+     more batch of the vmap engine and of H = 0 under the profiler (the
+     device's busy share, the largest kernels);
  3b. the quantized path at full width: ``StreamingIndex(ANNConfig(dim=128,
      n_cap=1_000_000, quantized=True), batch_updates=True)`` replaying a
      sliding-window runbook through ``run_runbook``; Recall@10 per eval, no
@@ -235,6 +245,8 @@ DEVICE_KERNELS = {
 # kernels redesigned for Hopper whose ptxas report must show no spills
 NO_SPILL = ("topk_partial_kernel", "gather_one_kernel", "beam_hop_kernel",
             "quant_gather_block_kernel")
+# the fields of a search result compared exactly on Gaussian data
+EXACT_FIELDS = ("topk_ids", "visited_ids", "n_visited", "n_comps", "n_hops")
 # the kernels each path must launch
 F32_PATH = ("gather_distance_batched", "gather_distance", "beam_hop_fused",
             "topk_score")
@@ -1110,6 +1122,127 @@ def main_path(seed, live, n_queries=1024, window=512, boot=256):
     for name in F32_PATH:
         check(out["launches"][name] > 0,
               f"kernel {name} never launched on the f32 path")
+    t0 = time.perf_counter()
+    out["vmap"] = vmap_path(state.graph, cfg, qt)
+    out["vmap"]["wall_s"] = time.perf_counter() - t0
+    log(f"phase 3c: {out['vmap']['wall_s']:.1f} s")
+    return out
+
+
+def grid_valued(x):
+    """``x`` moved onto the grid of k/16, |k| <= 64, where every distance
+    the search computes at D = 128 is exact in float32."""
+    import torch
+
+    return torch.round(x * 16).clamp(-64, 64) / 16
+
+
+def vmap_path(graph, cfg, qt, qb=256, k=10, cpu_lanes=64):
+    """Phase 3c: ``search_batch_vmap`` (the reference's lockstep per-query
+    engine, kernel 1 a hop) on phase 3's index, ``qb`` queries a batch,
+    batch by batch in turns with ``search_batch`` at ``hop_fused = 0``
+    (kernel 1 a hop) and at H = 4 (kernel 3): on the Gaussian queries the
+    ids, visited lists and counters equal H = 0's; on grid-valued queries
+    over the same graph with grid-valued rows every field equals H = 4's
+    and, for the first ``cpu_lanes`` queries, the plain run's on a CPU
+    copy.  Each vmap batch launches kernel 1 once a hop and once for the
+    start, and nothing else.  QPS and launches a batch of each engine; one
+    more batch of the vmap engine and of H = 0 under the profiler."""
+    import torch
+
+    from repro_torch.core import search_batch, search_batch_vmap
+    from repro_torch.kernels import ops
+
+    base = dataclasses.replace(cfg, backend="cuda")
+    engines = {
+        "vmap": lambda g, q: search_batch_vmap(g, base, q, k=k,
+                                               l=cfg.l_search),
+        "H=0": lambda g, q: search_batch(
+            g, dataclasses.replace(base, hop_fused=0), q, k=k,
+            l=cfg.l_search),
+        "H=4": lambda g, q: search_batch(
+            g, dataclasses.replace(base, hop_fused=4), q, k=k,
+            l=cfg.l_search),
+    }
+    gv = grid_valued(graph.vectors)
+    grid = graph._replace(vectors=gv, norms=(gv * gv).sum(1))
+    runs = {"gauss": (graph, qt, "H=0"), "grid": (grid, grid_valued(qt),
+                                                  "H=4")}
+    for fn in engines.values():
+        fn(graph, qt[:qb])
+    torch.cuda.synchronize()
+    secs = {key: dict.fromkeys(engines, 0.0) for key in runs}
+    launches = {key: dict.fromkeys(ops.launch_counts(), 0) for key in engines}
+    hops, peak, first_grid = [], 0, None
+    for kind, (g, q, twin) in runs.items():
+        for lo in range(0, q.shape[0], qb):
+            outs = {}
+            for key, fn in engines.items():
+                if key == "vmap":
+                    torch.cuda.reset_peak_memory_stats()
+                before = ops.launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[key] = fn(g, q[lo:lo + qb])
+                torch.cuda.synchronize()
+                secs[kind][key] += time.perf_counter() - t0
+                if key == "vmap":
+                    peak = max(peak, torch.cuda.max_memory_allocated())
+                got = {name: c - before[name]
+                       for name, c in ops.launch_counts().items()}
+                for name, c in got.items():
+                    launches[key][name] += c
+                if key == "vmap":
+                    n_it = int(outs[key].n_hops.max())
+                    hops.append(n_it)
+                    check(got["gather_distance_batched"] == n_it + 1
+                          and sum(got.values()) == n_it + 1,
+                          f"phase 3c: a vmap batch of {n_it} hops "
+                          f"launched {got}")
+            v, w = outs["vmap"], outs[twin]
+            fields = EXACT_FIELDS if kind == "gauss" else v._fields
+            bad = [f for f in fields
+                   if not torch.equal(getattr(v, f), getattr(w, f))]
+            check(not bad, f"phase 3c {kind}: vmap and {twin} differ in "
+                  f"{bad}")
+            if kind == "gauss":
+                dists_bitwise = all(torch.equal(getattr(v, f), getattr(w, f))
+                                    for f in ("topk_dists", "visited_dists"))
+            if kind == "grid" and first_grid is None:
+                first_grid = (q[lo:lo + cpu_lanes], v)
+    # where one batch's time goes, vmap engine against H = 0
+    traces = {key: profile_steps(lambda g, q, fn=engines[key]: (g, fn(g, q)),
+                                 graph, qt[:qb], steps=1)
+              for key in ("vmap", "H=0")}
+    # the plain run on a CPU copy of the grid-valued index
+    q, v = first_grid
+    host = type(grid)(*[x.cpu() if x is not None else None for x in grid])
+    t0 = time.perf_counter()
+    plain = search_batch_vmap(host, dataclasses.replace(cfg, backend="torch"),
+                              q.cpu(), k=k, l=cfg.l_search)
+    cpu_s = time.perf_counter() - t0
+    bad = [f for f in v._fields
+           if not torch.equal(getattr(v, f)[:cpu_lanes].cpu(),
+                              getattr(plain, f))]
+    check(not bad, f"phase 3c: the card's vmap engine and the CPU copy's "
+          f"differ in {bad}")
+    del grid, gv, host
+    torch.cuda.empty_cache()
+    n_b = len(hops)
+    out = {"query_batch": qb, "k": k, "l": cfg.l_search,
+           "batches": n_b, "loop_hops": hops,
+           "launches": launches["vmap"],
+           "per_batch": {key: {name: c / n_b for name, c in per.items() if c}
+                         for key, per in launches.items()},
+           "qps": {kind: {key: qt.shape[0] / t for key, t in by.items()}
+                   for kind, by in secs.items()},
+           "vmap_ms_per_hop": sum(secs[kd]["vmap"] for kd in secs) * 1e3
+           / sum(hops),
+           "vmap_peak_mem_bytes": peak,
+           "gauss_dists_bitwise_h0": dists_bitwise,
+           "profiled_batches": traces,
+           "cpu_lanes": cpu_lanes, "cpu_s": cpu_s}
+    log(f"phase 3c, vmap engine: {out}")
     return out
 
 
@@ -3457,8 +3590,8 @@ def busy_ms(events):
     return total / 1e3
 
 
-def profile_steps(step, state, inputs):
-    """``PROFILE_STEPS`` more steps under ``torch.profiler``: the device time
+def profile_steps(step, state, inputs, steps=PROFILE_STEPS):
+    """``steps`` more steps under ``torch.profiler``: the device time
     per step by kernel group (``KERNEL_GROUPS``) and of the largest
     kernels, the host wall time per step around the same steps, and the
     device's idle share (1 - busy / wall, the kernels' intervals merged).
@@ -3471,23 +3604,23 @@ def profile_steps(step, state, inputs):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(PROFILE_STEPS):
+        for _ in range(steps):
             state, _ = step(state, inputs)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+        wall = (time.perf_counter() - t0) * 1e3 / steps
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name, groups = {}, {}
     for e in kernels:
-        ms = e.time_range.elapsed_us() / 1e3 / PROFILE_STEPS
+        ms = e.time_range.elapsed_us() / 1e3 / steps
         by_name[e.name] = by_name.get(e.name, 0.0) + ms
         groups[kernel_group(e.name)] = groups.get(kernel_group(e.name),
                                                   0.0) + ms
-    busy = busy_ms(kernels) / PROFILE_STEPS if kernels else None
-    return {"steps": PROFILE_STEPS, "wall_ms_per_step": wall,
+    busy = busy_ms(kernels) / steps if kernels else None
+    return {"steps": steps, "wall_ms_per_step": wall,
             "device_busy_ms_per_step": busy,
             "idle_share": None if busy is None else 1.0 - busy / wall,
-            "kernels_per_step": len(kernels) / PROFILE_STEPS,
+            "kernels_per_step": len(kernels) / steps,
             "groups_ms_per_step": groups or None,
             "top_kernels_ms_per_step": sorted(
                 by_name.items(), key=lambda kv: -kv[1])[:8]}
@@ -4606,6 +4739,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     record["main"] = main_path(args.seed, args.live)
     record["main"]["wall_s"] = time.perf_counter() - t0
+    record["vmap"] = record["main"]["vmap"]
     t0 = time.perf_counter()
     record["quant"] = quant_path(args.seed, args.runbook_n)
     record["quant"]["wall_s"] = time.perf_counter() - t0
@@ -4676,10 +4810,10 @@ def main(argv=None):
             "replaces": TPU_SITES[name], "tpu_def": TPU_DEFS[name],
             "launches": record[path]["launches"].get(name, 0),
             "launches_by_path": {p: record[p]["launches"].get(name, 0)
-                                 for p in ("main", "quant", "fresh", "local",
-                                           "hnsw", "segments", "serving",
-                                           "sharded", "recsys", "train",
-                                           "lm", "mesh")},
+                                 for p in ("main", "vmap", "quant", "fresh",
+                                           "local", "hnsw", "segments",
+                                           "serving", "sharded", "recsys",
+                                           "train", "lm", "mesh")},
             "max_abs_err": g.get("max_abs_err"),
             "grid_bitwise": name in grid,
             "ms": g.get("ms"), "public_ms": g.get("public_ms"),

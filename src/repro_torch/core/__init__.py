@@ -68,7 +68,8 @@ from .recall import brute_force_topk, graph_recall, recall_at_k
 from .runbook import (Runbook, RunbookStep, make_dataset, make_runbook,
                       runbook_segment_plan, runbook_update_stream,
                       sliding_window_runbook, step_update_batch)
-from .search import SearchResult, greedy_search, search_batch
+from .search import (SearchResult, greedy_search, search_batch,
+                     search_batch_vmap, se_key)
 from .search_batched import (batched_greedy_search, merge_topk, next_bucket,
                              pad_batch, resolved_hop_fused)
 from . import bitset

@@ -35,11 +35,12 @@ HIGH_WATER = 0.9
 _COUNTERS = ("n_inserts", "n_deletes", "insert_comps", "delete_comps")
 
 
-def next_capacity(needed: int, n_cap: int) -> int:
+def next_capacity(needed: int, n_cap: int,
+                  high_water: float = HIGH_WATER) -> int:
     """The smallest power-of-two bucket >= ``n_cap`` whose high-water mark
     admits ``needed`` slots."""
     cap = 1 << max(n_cap - 1, 1).bit_length()
-    while needed > HIGH_WATER * cap:
+    while needed > high_water * cap:
         cap *= 2
     return cap
 
@@ -110,22 +111,25 @@ def grow_index(state: IndexState, cfg: ANNConfig,
     return state, new_cfg
 
 
-def needs_growth(state: IndexState, cfg: ANNConfig, incoming: int) -> bool:
+def needs_growth(state: IndexState, cfg: ANNConfig, incoming: int,
+                 high_water: float = HIGH_WATER) -> bool:
     """Host-side trigger: would ``incoming`` more inserts push the live
     count past the high-water mark?  (A stacked state counts its fullest
     row, so every logical row grows in lockstep.)"""
     free = int(state.graph.free_top.min())
-    return (cfg.n_cap - free) + incoming > HIGH_WATER * cfg.n_cap
+    return (cfg.n_cap - free) + incoming > high_water * cfg.n_cap
 
 
-def ensure_capacity(state: IndexState, cfg: ANNConfig, incoming: int
+def ensure_capacity(state: IndexState, cfg: ANNConfig, incoming: int,
+                    high_water: float = HIGH_WATER
                     ) -> Tuple[IndexState, ANNConfig, bool]:
     """Grow ``state`` (if needed) so ``incoming`` more inserts stay below
     the high-water mark.  Returns ``(state, cfg, grew)``."""
-    if not needs_growth(state, cfg, incoming):
+    if not needs_growth(state, cfg, incoming, high_water):
         return state, cfg, False
     needed = (cfg.n_cap - int(state.graph.free_top.min())) + incoming
-    state, cfg = grow_index(state, cfg, next_capacity(needed, cfg.n_cap))
+    state, cfg = grow_index(state, cfg,
+                            next_capacity(needed, cfg.n_cap, high_water))
     return state, cfg, True
 
 

@@ -236,6 +236,27 @@ class HNSWIndex:
         self.eval_counters = EvalCounters()
         self._ml = 1.0 / np.log(cfg.m)
 
+    # the reference's read-only views of ``counters``
+    @property
+    def insert_s(self) -> float:
+        return self.counters.insert_s
+
+    @property
+    def search_s(self) -> float:
+        return self.counters.search_s
+
+    @property
+    def search_comps(self) -> int:
+        return self.counters.search_comps
+
+    @property
+    def n_inserts(self) -> int:
+        return self.counters.n_inserts
+
+    @property
+    def n_queries(self) -> int:
+        return self.counters.n_queries
+
     def _sample_level(self) -> int:
         return min(int(-np.log(self.rng.uniform(1e-12, 1.0)) * self._ml),
                    self.cfg.max_level)

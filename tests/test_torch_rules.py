@@ -503,16 +503,47 @@ def test_quantized_init_state_has_reference_leaves():
 
 def test_front_doors_resolve_the_references_names():
     """Every name of ``repro.core.__all__`` resolves in ``repro_torch.core``
-    (``from repro_torch.core import X``), except ``search_batch_vmap``: the
-    port has no ``vmap`` engine."""
+    (``from repro_torch.core import X``), and every parameter of each
+    callable there that a caller can pass by keyword is accepted by the
+    port's counterpart, but for the JAX-only knobs of ``JAX_ONLY``."""
+    import inspect
+
     import repro.core as ref_core
     import repro_torch.core as port_core
 
     missing = [name for name in ref_core.__all__
-               if name != "search_batch_vmap"
-               and not hasattr(port_core, name)]
+               if not hasattr(port_core, name)]
     assert not missing
-    assert not hasattr(port_core, "search_batch_vmap")
+    refused = []
+    for name in ref_core.__all__:
+        ref, port = getattr(ref_core, name), getattr(port_core, name)
+        if not callable(ref):
+            continue
+        try:
+            ref_params = inspect.signature(ref).parameters.values()
+        except ValueError:          # a builtin type (an exception class)
+            continue
+        params = inspect.signature(port).parameters
+        if any(p.kind == p.VAR_KEYWORD for p in params.values()):
+            continue
+        refused += [f"{name}({p.name}=)" for p in ref_params
+                    if p.kind in (p.POSITIONAL_OR_KEYWORD, p.KEYWORD_ONLY)
+                    and p.name not in params and p.name not in JAX_ONLY]
+    assert not refused
+
+
+# Keywords of the reference's front doors that are knobs of JAX itself, and
+# what the port has in their place.
+JAX_ONLY = {
+    "interpret": "Pallas's interpret mode; a port kernel takes its plain "
+                 "version on CPU tensors",
+    "tile_k": "a Pallas block size; the CUDA kernels pick theirs",
+    "tile_n": "a Pallas block size; the CUDA kernels pick theirs",
+    "unroll": "a lax.scan knob; the port's loops are Python loops",
+    "key": "a jax.random key; the port takes a torch.Generator",
+    "mesh": "a jax.sharding.Mesh; the port takes a device list",
+    "axis": "a mesh axis name; the port takes a device list",
+}
 
 
 def test_kernel_distance_fn_drives_greedy_search():
