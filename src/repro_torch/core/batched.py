@@ -2,7 +2,9 @@
 runs in one shared hop loop against the pre-batch graph (the paper's
 relaxed visibility), then the graph writes apply lane by lane.  The write
 phase is a Python loop here; its cost per lane is reported by the chip
-smoke run.  The state's tensors are updated in place."""
+smoke run.  The state's tensors are updated in place.  With tracing on
+(``repro_torch.trace``), the phases are the spans
+``repro_torch.update.search`` and ``repro_torch.update.write``."""
 from __future__ import annotations
 
 import time
@@ -10,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from .. import trace
 from .delete import DeleteStats, repair_edges
 from .edges import append_rows
 from .insert import InsertStats
@@ -25,6 +28,7 @@ PHASE_SECONDS = {"search": 0.0, "write": 0.0}
 
 def _now(dev) -> float:
     if dev.type == "cuda":
+        trace.host_sync()
         torch.cuda.synchronize(dev)
     return time.perf_counter()
 
@@ -64,24 +68,27 @@ def insert_many_batched(state: GraphState, cfg: ANNConfig, xs: torch.Tensor,
 
     # phase 1: one shared-hop-loop search for every lane
     t0 = _now(dev)
-    res = batched_greedy_search(state, cfg, xs_f, k=1, l=cfg.l_build,
-                                valid=valid)
+    with trace.span("repro_torch.update.search"):
+        res = batched_greedy_search(state, cfg, xs_f, k=1, l=cfg.l_build,
+                                    valid=valid)
     t1 = _now(dev)
 
     # phase 2: serial link application
-    for lane in range(b):
-        if not ok_l[lane]:
-            continue
-        slot = slots_l[lane]
-        nout = robust_prune(state, cfg, xs_f[lane], res.visited_ids[lane],
-                            res.visited_dists[lane], p_id=slot)
-        state.adj[slot] = nout
-        state.active[slot] = True
-        state.n_active.add_(1)
-        state.free_top.sub_(1)
-        if int(state.start) < 0:
-            state.start.fill_(slot)
-        append_rows(state, cfg, nout, torch.tensor(slot, device=dev))
+    with trace.span("repro_torch.update.write"):
+        for lane in range(b):
+            if not ok_l[lane]:
+                continue
+            slot = slots_l[lane]
+            nout = robust_prune(state, cfg, xs_f[lane],
+                                res.visited_ids[lane],
+                                res.visited_dists[lane], p_id=slot)
+            state.adj[slot] = nout
+            state.active[slot] = True
+            state.n_active.add_(1)
+            state.free_top.sub_(1)
+            if int(state.start) < 0:
+                state.start.fill_(slot)
+            append_rows(state, cfg, nout, torch.tensor(slot, device=dev))
     PHASE_SECONDS["search"] += t1 - t0
     PHASE_SECONDS["write"] += _now(dev) - t1
     stats = InsertStats(slot=slots, n_comps=res.n_comps,
@@ -98,18 +105,21 @@ def ip_delete_many_batched(state: GraphState, cfg: ANNConfig,
     x_ps = state.vectors[sps]
     dev = ps.device
     t0 = _now(dev)
-    res = batched_greedy_search(state, cfg, x_ps, k=cfg.k_delete,
-                                l=cfg.l_delete, valid=valid)
-    inv = torch.full_like(res.visited_ids, INVALID)
-    vis_b = torch.where(res.visited_ids == ps[:, None], inv, res.visited_ids)
-    cands_b = torch.where(res.topk_ids == ps[:, None],
-                          torch.full_like(res.topk_ids, INVALID),
-                          res.topk_ids)
+    with trace.span("repro_torch.update.search"):
+        res = batched_greedy_search(state, cfg, x_ps, k=cfg.k_delete,
+                                    l=cfg.l_delete, valid=valid)
+        inv = torch.full_like(res.visited_ids, INVALID)
+        vis_b = torch.where(res.visited_ids == ps[:, None], inv,
+                            res.visited_ids)
+        cands_b = torch.where(res.topk_ids == ps[:, None],
+                              torch.full_like(res.topk_ids, INVALID),
+                              res.topk_ids)
     t1 = _now(dev)
-    for lane, (p, ok) in enumerate(zip(ps.cpu().tolist(),
-                                       valid.cpu().tolist())):
-        if ok:
-            repair_edges(state, cfg, p, vis_b[lane], cands_b[lane])
+    with trace.span("repro_torch.update.write"):
+        for lane, (p, ok) in enumerate(zip(ps.cpu().tolist(),
+                                           valid.cpu().tolist())):
+            if ok:
+                repair_edges(state, cfg, p, vis_b[lane], cands_b[lane])
     PHASE_SECONDS["search"] += t1 - t0
     PHASE_SECONDS["write"] += _now(dev) - t1
     stats = DeleteStats(ok=valid, n_comps=res.n_comps,

@@ -30,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import trace
 from .backend import BIG, resolve_backend
 from .edges import append_rows, remove_target_everywhere, remove_target_rows
 from .search import greedy_search
@@ -72,41 +73,44 @@ def _next_start(st: GraphState, cfg: ANNConfig, p, nout_p):
 def repair_edges(st: GraphState, cfg: ANNConfig, p: int, vis, cands):
     """Steps 2-5 for slot ``p`` given its search's visited list and
     candidates (both with p masked out).  Returns the in-neighbour count."""
-    sp = min(max(p, 0), cfg.n_cap - 1)
-    nout_p = st.adj[sp].clone()
-    vis_rows = st.adj[clip_ids(vis, cfg.n_cap)]
-    in_mask = (vis_rows == p).any(1) & (vis >= 0)
-    cz = _topc_candidates(st, cfg, vis, cands, cfg.n_copies)     # (V, c)
-    remove_target_rows(st, cfg, torch.where(in_mask, vis, INVALID), p)
-    zs = torch.where(in_mask, vis, torch.full_like(vis, INVALID))
-    for j in range(cfg.n_copies):
-        append_rows(st, cfg, zs, cz[:, j])
-    cw = _topc_candidates(st, cfg, nout_p, cands, cfg.n_copies)  # (r, c)
-    # (i, j) order per target row y = cw[i, j]; wave t = the row's t-th
-    ys = cw.reshape(-1).cpu().tolist()
-    ws = nout_p[:, None].expand(-1, cfg.n_copies).reshape(-1).cpu().tolist()
-    waves, seen_count = [], {}
-    for y, w in zip(ys, ws):
-        if y < 0:
-            continue
-        t = seen_count.get(y, 0)
-        seen_count[y] = t + 1
-        if t == len(waves):
-            waves.append(([], []))
-        waves[t][0].append(y)
-        waves[t][1].append(w)
-    dev = st.adj.device
-    for wy, ww in waves:
-        append_rows(st, cfg, torch.tensor(wy, dtype=torch.int32, device=dev),
-                    torch.tensor(ww, dtype=torch.int32, device=dev))
-    new_start = _next_start(st, cfg, p, nout_p)
-    st.adj[sp] = INVALID
-    st.active[sp] = False
-    st.quarantine[sp] = True
-    st.n_active.sub_(1)
-    st.n_pending.add_(1)
-    st.start.copy_(new_start)
-    return in_mask.sum().to(torch.int32), nout_p
+    with trace.span("repro_torch.update.repair"):
+        sp = min(max(p, 0), cfg.n_cap - 1)
+        nout_p = st.adj[sp].clone()
+        vis_rows = st.adj[clip_ids(vis, cfg.n_cap)]
+        in_mask = (vis_rows == p).any(1) & (vis >= 0)
+        cz = _topc_candidates(st, cfg, vis, cands, cfg.n_copies)     # (V, c)
+        remove_target_rows(st, cfg, torch.where(in_mask, vis, INVALID), p)
+        zs = torch.where(in_mask, vis, torch.full_like(vis, INVALID))
+        for j in range(cfg.n_copies):
+            append_rows(st, cfg, zs, cz[:, j])
+        cw = _topc_candidates(st, cfg, nout_p, cands, cfg.n_copies)  # (r, c)
+        # (i, j) order per target row y = cw[i, j]; wave t = the row's t-th
+        ys = cw.reshape(-1).cpu().tolist()
+        ws = nout_p[:, None].expand(-1, cfg.n_copies).reshape(-1).cpu() \
+            .tolist()
+        waves, seen_count = [], {}
+        for y, w in zip(ys, ws):
+            if y < 0:
+                continue
+            t = seen_count.get(y, 0)
+            seen_count[y] = t + 1
+            if t == len(waves):
+                waves.append(([], []))
+            waves[t][0].append(y)
+            waves[t][1].append(w)
+        dev = st.adj.device
+        for wy, ww in waves:
+            append_rows(st, cfg,
+                        torch.tensor(wy, dtype=torch.int32, device=dev),
+                        torch.tensor(ww, dtype=torch.int32, device=dev))
+        new_start = _next_start(st, cfg, p, nout_p)
+        st.adj[sp] = INVALID
+        st.active[sp] = False
+        st.quarantine[sp] = True
+        st.n_active.sub_(1)
+        st.n_pending.add_(1)
+        st.start.copy_(new_start)
+        return in_mask.sum().to(torch.int32), nout_p
 
 
 def ip_delete(state: GraphState, cfg: ANNConfig, p: int):

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import trace
 from .prune import robust_prune_rows
 from .types import (INVALID, ANNConfig, GraphState, clip_ids, compact_row,
                     row_contains, row_count)
@@ -22,29 +23,30 @@ def append_rows(state: GraphState, cfg: ANNConfig, vs: torch.Tensor,
     """Add the edges ``vs[i] -> us[i]``; valid ``vs`` must be distinct.
     Each lane no-ops when v/u is INVALID, u == v, u is already in v's row,
     or either end is not a live slot."""
-    vs = vs.to(torch.int32).reshape(-1)
-    us = us.to(torch.int32).reshape(-1).expand(vs.shape[0])
-    sv = clip_ids(vs, cfg.n_cap)
-    su = clip_ids(us, cfg.n_cap)
-    rows = state.adj[sv]                                      # (M, r)
-    u_live = state.active[su] | state.tombstone[su]
-    v_live = state.active[sv] | state.tombstone[sv]
-    skip = ((vs < 0) | (us < 0) | (vs == us) | row_contains(rows, us)
-            | ~u_live | ~v_live)
-    cnt = row_count(rows)
-    do_append = ~skip & (cnt < cfg.r)
-    do_prune = ~skip & (cnt >= cfg.r)
-    # one host read decides which lanes append and which prune
-    flags = torch.stack([do_append, do_prune]).cpu()
-    app = torch.nonzero(flags[0]).squeeze(1).to(vs.device)
-    if app.numel():
-        state.adj[sv[app], cnt[app]] = us[app]
-    sel = torch.nonzero(flags[1]).squeeze(1).to(vs.device)
-    if sel.numel():
-        cand = torch.cat([rows[sel], us[sel, None]], dim=1)
-        new_rows = robust_prune_rows(state, cfg, state.vectors[sv[sel]],
-                                     cand, p_ids=vs[sel])
-        state.adj[sv[sel]] = new_rows
+    with trace.span("repro_torch.update.append"):
+        vs = vs.to(torch.int32).reshape(-1)
+        us = us.to(torch.int32).reshape(-1).expand(vs.shape[0])
+        sv = clip_ids(vs, cfg.n_cap)
+        su = clip_ids(us, cfg.n_cap)
+        rows = state.adj[sv]                                      # (M, r)
+        u_live = state.active[su] | state.tombstone[su]
+        v_live = state.active[sv] | state.tombstone[sv]
+        skip = ((vs < 0) | (us < 0) | (vs == us) | row_contains(rows, us)
+                | ~u_live | ~v_live)
+        cnt = row_count(rows)
+        do_append = ~skip & (cnt < cfg.r)
+        do_prune = ~skip & (cnt >= cfg.r)
+        # one host read decides which lanes append and which prune
+        flags = torch.stack([do_append, do_prune]).cpu()
+        app = torch.nonzero(flags[0]).squeeze(1).to(vs.device)
+        if app.numel():
+            state.adj[sv[app], cnt[app]] = us[app]
+        sel = torch.nonzero(flags[1]).squeeze(1).to(vs.device)
+        if sel.numel():
+            cand = torch.cat([rows[sel], us[sel, None]], dim=1)
+            new_rows = robust_prune_rows(state, cfg, state.vectors[sv[sel]],
+                                         cand, p_ids=vs[sel])
+            state.adj[sv[sel]] = new_rows
     return state
 
 

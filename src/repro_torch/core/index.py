@@ -28,6 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import trace
 from .api import (apply, available_policies, delete_batch, get_policy,
                   insert_batch, maybe_consolidate, plan_segments,
                   run_segments, search)
@@ -67,6 +68,7 @@ class EvalCounters:
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
+        trace.host_sync()
         torch.cuda.synchronize(device)
 
 
@@ -144,57 +146,59 @@ class StreamingIndex:
 
     def insert(self, ext_ids: np.ndarray, vectors: np.ndarray) -> None:
         assert len(ext_ids) == len(vectors)
-        t0 = time.perf_counter()
-        ext_ids = np.asarray(ext_ids)
-        if not self.batch_updates:
-            self._apply_insert(ext_ids, vectors, batched=False)
-        else:
-            # relaxed visibility (searches see the pre-batch graph) is only
-            # sound when the batch is small against the live graph:
-            # bootstrap serially to 2*l_build, then power-of-two windows
-            # capped at min(n_active, 512)
-            i = 0
-            n = len(ext_ids)
-            while i < n:
-                na = self.n_active
-                boot = 2 * self.cfg.l_build
-                if na < boot:
-                    take = min(boot - na, n - i)
-                    batched = False
-                else:
-                    c = 64
-                    while c * 2 <= min(na, 512):
-                        c *= 2
-                    take = min(c, n - i)
-                    batched = True
-                self._apply_insert(ext_ids[i:i + take],
-                                   vectors[i:i + take], batched=batched)
-                i += take
-        _sync(self.device)
-        self.counters.insert_s += time.perf_counter() - t0
-        self.counters.n_inserts += len(ext_ids)
+        with trace.request("repro_torch.index.insert", n=len(ext_ids)):
+            t0 = time.perf_counter()
+            ext_ids = np.asarray(ext_ids)
+            if not self.batch_updates:
+                self._apply_insert(ext_ids, vectors, batched=False)
+            else:
+                # relaxed visibility (searches see the pre-batch graph) is only
+                # sound when the batch is small against the live graph:
+                # bootstrap serially to 2*l_build, then power-of-two windows
+                # capped at min(n_active, 512)
+                i = 0
+                n = len(ext_ids)
+                while i < n:
+                    na = self.n_active
+                    boot = 2 * self.cfg.l_build
+                    if na < boot:
+                        take = min(boot - na, n - i)
+                        batched = False
+                    else:
+                        c = 64
+                        while c * 2 <= min(na, 512):
+                            c *= 2
+                        take = min(c, n - i)
+                        batched = True
+                    self._apply_insert(ext_ids[i:i + take],
+                                       vectors[i:i + take], batched=batched)
+                    i += take
+            _sync(self.device)
+            self.counters.insert_s += time.perf_counter() - t0
+            self.counters.n_inserts += len(ext_ids)
 
     def delete(self, ext_ids: np.ndarray) -> None:
         """Delete by external id.  Duplicates within one call are deleted
         once.  Unknown ids raise ``KeyError`` after the known ids of the
         batch are applied and booked."""
-        t0 = time.perf_counter()
-        ext_ids = np.asarray(ext_ids)
-        _, first = np.unique(ext_ids, return_index=True)
-        ext_ids = ext_ids[np.sort(first)]   # dedupe, keep caller order
-        res = self._apply(delete_batch(ext_ids, self.cfg.dim,
-                                       device=self.device),
-                          sequential=not self.batch_updates)
-        self.counters.delete_comps += int(res.n_comps.sum())
-        ok = res.ok.cpu().numpy()[:len(ext_ids)]
-        self.counters.delete_s += time.perf_counter() - t0
-        self.counters.n_deletes += int(ok.sum())
-        self.maybe_consolidate()
-        if not ok.all():
-            raise KeyError(
-                f"delete of unknown external id(s): "
-                f"{ext_ids[~ok][:8].tolist()}"
-            )
+        with trace.request("repro_torch.index.delete", n=len(ext_ids)):
+            t0 = time.perf_counter()
+            ext_ids = np.asarray(ext_ids)
+            _, first = np.unique(ext_ids, return_index=True)
+            ext_ids = ext_ids[np.sort(first)]   # dedupe, keep caller order
+            res = self._apply(delete_batch(ext_ids, self.cfg.dim,
+                                           device=self.device),
+                              sequential=not self.batch_updates)
+            self.counters.delete_comps += int(res.n_comps.sum())
+            ok = res.ok.cpu().numpy()[:len(ext_ids)]
+            self.counters.delete_s += time.perf_counter() - t0
+            self.counters.n_deletes += int(ok.sum())
+            self.maybe_consolidate()
+            if not ok.all():
+                raise KeyError(
+                    f"delete of unknown external id(s): "
+                    f"{ext_ids[~ok][:8].tolist()}"
+                )
 
     def apply_segments(self, steps, *, splits=None, max_t: int = 64,
                        sequential: bool = False, unroll=None):
@@ -300,18 +304,21 @@ class StreamingIndex:
     def _search(self, queries, k, l, counters):
         """One query batch through the front door, booked into the given
         counters object (serving or evaluation)."""
-        t0 = time.perf_counter()
-        ext, dists, res = search(
-            self.istate, self.cfg,
-            torch.as_tensor(np.asarray(queries, np.float32),
-                            device=self.device),
-            k=k, l=l or self.cfg.l_search,
-        )
-        ext = ext.cpu().numpy()
-        counters.search_comps += int(res.n_comps.sum())
-        counters.search_s += time.perf_counter() - t0
-        counters.n_queries += queries.shape[0]
-        return ext, dists.cpu().numpy(), res.topk_ids.cpu().numpy()
+        with trace.request("repro_torch.index.search", n=len(queries)):
+            t0 = time.perf_counter()
+            with trace.span("repro_torch.search.upload"):
+                q = torch.as_tensor(np.asarray(queries, np.float32),
+                                    device=self.device)
+            ext, dists, res = search(self.istate, self.cfg, q, k=k,
+                                     l=l or self.cfg.l_search)
+            with trace.span("repro_torch.search.download"):
+                ext = ext.cpu().numpy()
+                counters.search_comps += int(res.n_comps.sum())
+                counters.search_s += time.perf_counter() - t0
+                counters.n_queries += queries.shape[0]
+                dists = dists.cpu().numpy()
+                slots = res.topk_ids.cpu().numpy()
+        return ext, dists, slots
 
     def search(self, queries: np.ndarray, k: int = 10,
                l: Optional[int] = None):

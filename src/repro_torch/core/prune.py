@@ -22,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from .. import trace
 from .backend import BIG, resolve_backend
 from .types import (INVALID, ANNConfig, GraphState, clip_ids, compact_row,
                     mask_duplicates)
@@ -41,60 +42,63 @@ def robust_prune_rows(state: GraphState, cfg: ANNConfig, p_vecs, cand_ids,
     (recomputed where not finite); ``p_ids`` optional i32[M] slot of p,
     excluded from its candidates.  Returns front-compacted i32[M, r] rows in
     selection order."""
-    dev = cand_ids.device
-    m, c = cand_ids.shape
-    ids = mask_duplicates(cand_ids.to(torch.int32))
-    if p_ids is not None:
-        ids = torch.where(ids == p_ids[:, None], torch.full_like(ids, INVALID),
-                          ids)
-    safe = clip_ids(ids, cfg.n_cap)
-    live = state.active[safe] | state.tombstone[safe]
-    ids = torch.where((ids >= 0) & live, ids, torch.full_like(ids, INVALID))
-    safe = clip_ids(ids, cfg.n_cap)
+    with trace.span("repro_torch.update.prune"):
+        dev = cand_ids.device
+        m, c = cand_ids.shape
+        ids = mask_duplicates(cand_ids.to(torch.int32))
+        if p_ids is not None:
+            ids = torch.where(ids == p_ids[:, None],
+                              torch.full_like(ids, INVALID), ids)
+        safe = clip_ids(ids, cfg.n_cap)
+        live = state.active[safe] | state.tombstone[safe]
+        ids = torch.where((ids >= 0) & live, ids,
+                          torch.full_like(ids, INVALID))
+        safe = clip_ids(ids, cfg.n_cap)
 
-    be = resolve_backend(cfg, dev)
-    p_vecs = p_vecs.to(torch.float32)
-    cand_vecs = state.vectors[safe]                          # (M, C, D)
-    cand_norms = state.norms[safe]                           # (M, C)
-    p_norm = be.query_norm(cfg, p_vecs)                      # (M,)
-    prod = torch.bmm(cand_vecs, p_vecs.unsqueeze(-1)).squeeze(-1)
-    d_p = (p_norm[:, None] + cand_norms - 2.0 * prod
-           if cfg.metric == "l2" else -prod)
-    if cand_dists is not None:
-        d_p = torch.where(torch.isfinite(cand_dists), cand_dists, d_p)
-    big = torch.full_like(d_p, BIG)
-    d_p = torch.where(ids >= 0, d_p, big)
-    wide = c > WIDE_PRUNE_C
-    if not wide:
-        # adv[m, j, u] = alpha * d(x_u, x_j), x_j the selected candidate
-        adv = alpha_times(cfg, be.pair_dists(cfg, cand_vecs, cand_norms,
-                                             cand_vecs, cand_norms))
-    rows_m = torch.arange(m, device=dev)
-    alive = ids >= 0
-    # selection order per row, INVALID where a step selects nothing; a
-    # stable compaction at the end is the reference's ``out[n_out]`` writes
-    sel = torch.full((m, cfg.r), INVALID, dtype=torch.int32, device=dev)
-    none = torch.full((m,), INVALID, dtype=torch.int32, device=dev)
-    for step in range(cfg.r):
-        if step % _CHECK_EVERY == 0 and not bool(alive.any()):
-            break
-        # first minimum over the live candidates; a row with none left
-        # gets +inf (every live candidate has a finite distance to p)
-        val, j = torch.where(alive, d_p, big).min(dim=1)
-        ok = val < BIG
-        jj = j[:, None]
-        sel[:, step] = torch.where(ok, ids.gather(1, jj)[:, 0], none)
-        if wide:
-            # one (M, C) row: alpha * d(x_u, x_j) for this step's x_j
-            keep = alpha_times(cfg, be.pair_dists(
-                cfg, cand_vecs[rows_m, j][:, None], cand_norms.gather(1, jj),
-                cand_vecs, cand_norms))[:, 0]
-        else:
-            keep = torch.gather(adv, 1,
-                                jj[:, :, None].expand(-1, 1, c))[:, 0]
-        alive &= (keep > d_p) | ~ok[:, None]
-        alive.scatter_(1, jj, False)
-    return compact_row(sel)
+        be = resolve_backend(cfg, dev)
+        p_vecs = p_vecs.to(torch.float32)
+        cand_vecs = state.vectors[safe]                          # (M, C, D)
+        cand_norms = state.norms[safe]                           # (M, C)
+        p_norm = be.query_norm(cfg, p_vecs)                      # (M,)
+        prod = torch.bmm(cand_vecs, p_vecs.unsqueeze(-1)).squeeze(-1)
+        d_p = (p_norm[:, None] + cand_norms - 2.0 * prod
+               if cfg.metric == "l2" else -prod)
+        if cand_dists is not None:
+            d_p = torch.where(torch.isfinite(cand_dists), cand_dists, d_p)
+        big = torch.full_like(d_p, BIG)
+        d_p = torch.where(ids >= 0, d_p, big)
+        wide = c > WIDE_PRUNE_C
+        if not wide:
+            # adv[m, j, u] = alpha * d(x_u, x_j), x_j the selected candidate
+            adv = alpha_times(cfg, be.pair_dists(cfg, cand_vecs, cand_norms,
+                                                 cand_vecs, cand_norms))
+        rows_m = torch.arange(m, device=dev)
+        alive = ids >= 0
+        # selection order per row, INVALID where a step selects nothing; a
+        # stable compaction at the end is the reference's ``out[n_out]`` writes
+        sel = torch.full((m, cfg.r), INVALID, dtype=torch.int32, device=dev)
+        none = torch.full((m,), INVALID, dtype=torch.int32, device=dev)
+        for step in range(cfg.r):
+            if step % _CHECK_EVERY == 0 and not bool(alive.any()):
+                break
+            # first minimum over the live candidates; a row with none left
+            # gets +inf (every live candidate has a finite distance to p)
+            val, j = torch.where(alive, d_p, big).min(dim=1)
+            ok = val < BIG
+            jj = j[:, None]
+            sel[:, step] = torch.where(ok, ids.gather(1, jj)[:, 0], none)
+            if wide:
+                # one (M, C) row: alpha * d(x_u, x_j) for this step's x_j
+                keep = alpha_times(cfg, be.pair_dists(
+                    cfg, cand_vecs[rows_m, j][:, None],
+                    cand_norms.gather(1, jj),
+                    cand_vecs, cand_norms))[:, 0]
+            else:
+                keep = torch.gather(adv, 1,
+                                    jj[:, :, None].expand(-1, 1, c))[:, 0]
+            alive &= (keep > d_p) | ~ok[:, None]
+            alive.scatter_(1, jj, False)
+        return compact_row(sel)
 
 
 def alpha_times(cfg: ANNConfig, d: torch.Tensor) -> torch.Tensor:

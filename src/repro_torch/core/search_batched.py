@@ -23,6 +23,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from .. import trace
 from . import bitset
 from .backend import BIG, resolve_backend
 from .search import SearchResult, final_topk
@@ -260,30 +261,32 @@ def batched_greedy_search(state: GraphState, cfg: ANNConfig,
         step = backend.bind_beam_superstep(state, cfg, queries, s, h=h,
                                            quantized=use_q)
     carry = step.carry
-    go = bool(lane_active(s, max_visits).any())
-    while go:
-        carry = step(carry)
-        go = step.active()
+    with trace.span("repro_torch.search.hop_loop"):
+        go = bool(lane_active(s, max_visits).any())
+        while go:
+            carry = step(carry)
+            go = step.active()
     s = carry._replace(beam_exp=carry.beam_exp.to(torch.bool))
 
-    if use_q:
-        # exact rescore: re-rank the surviving beam against the f32 table,
-        # so neither the selection nor the reported distances carry
-        # quantization error
-        ret = state.active[clip_ids(s.beam_ids, cfg.n_cap)] & \
-            (s.beam_ids >= 0)
-        beam_d = backend.dists_to_ids_batched(
-            state, cfg, queries,
-            torch.where(ret, s.beam_ids, torch.full_like(s.beam_ids,
-                                                         INVALID)))
-        s = s._replace(beam_dists=beam_d,
-                       n_comps=s.n_comps + ret.sum(1).to(torch.int32))
-    ids, dists = final_topk(s.beam_ids, s.beam_dists, state.active,
-                            cfg.n_cap, k)
-    if use_q:
-        # recomputed on exactly the returned ids: bit-equal to a caller's
-        # f32 rescore of those ids
-        dists = backend.dists_to_ids_batched(state, cfg, queries, ids)
+    with trace.span("repro_torch.search.finish"):
+        if use_q:
+            # exact rescore: re-rank the surviving beam against the f32
+            # table, so neither the selection nor the reported distances
+            # carry quantization error
+            ret = state.active[clip_ids(s.beam_ids, cfg.n_cap)] & \
+                (s.beam_ids >= 0)
+            beam_d = backend.dists_to_ids_batched(
+                state, cfg, queries,
+                torch.where(ret, s.beam_ids,
+                            torch.full_like(s.beam_ids, INVALID)))
+            s = s._replace(beam_dists=beam_d,
+                           n_comps=s.n_comps + ret.sum(1).to(torch.int32))
+        ids, dists = final_topk(s.beam_ids, s.beam_dists, state.active,
+                                cfg.n_cap, k)
+        if use_q:
+            # recomputed on exactly the returned ids: bit-equal to a
+            # caller's f32 rescore of those ids
+            dists = backend.dists_to_ids_batched(state, cfg, queries, ids)
     return SearchResult(
         topk_ids=ids, topk_dists=dists, visited_ids=s.vis_ids,
         visited_dists=s.vis_dists, n_visited=s.n_vis, n_comps=s.n_comps,
