@@ -21,6 +21,16 @@ Phases, any failure exits non-zero:
      step; what the batched search's loop pays per super-step; the fused
      hops' status word against ``lane_active``; no spills in the
      redesigned kernels;
+ 2b. kernel 7 (RobustPrune's selection loop, ``csrc/robust_prune.cu``) at
+     the runbook cell's two shapes (D = 100, r = 64, alpha 1.2): an
+     insert's prune (M = 1, C = 192) and ``append_rows``' overflow prunes
+     (M = 64, C = 65), on candidates around each point with equal vectors
+     in distinct slots: the kernel's rows bitwise equal to the plain
+     loop's and to ``robust_prune_rows``' on the same inputs; the
+     wrapper's ms, its device ms, the bound, the plain loop's ms, and the
+     whole ``robust_prune_rows`` call with the kernel and with the plain
+     loop in its place (the per-step route); one launch a call and no
+     host synchronisation in it (the sync debug mode's "error" setting);
   3. the f32 main path end to end: ``ANNConfig(dim=128, n_cap=1_000_000)``
      on the card, a serial bootstrap, batched insert windows, Recall@10,
      in-place deletes with the Alg-6 sweep, reinserts, Recall@10 again, a
@@ -244,7 +254,7 @@ DEVICE_KERNELS = {
 }
 # kernels redesigned for Hopper whose ptxas report must show no spills
 NO_SPILL = ("topk_partial_kernel", "gather_one_kernel", "beam_hop_kernel",
-            "quant_gather_block_kernel")
+            "quant_gather_block_kernel", "robust_prune_kernel")
 # the fields of a search result compared exactly on Gaussian data
 EXACT_FIELDS = ("topk_ids", "visited_ids", "n_visited", "n_comps", "n_hops")
 # the kernels each path must launch
@@ -923,6 +933,104 @@ def kernel_phase(seed, n_cap=1_000_000, d=128, r=64, l=128, b=512, h=4,
         torch.cuda.empty_cache()
         rows[data] = res
     return rows
+
+
+def prune_phase(seed, d=100, r=64, alpha=1.2):
+    """Phase 2b: kernel 7 at the runbook cell's two shapes (see the module
+    docstring)."""
+    import torch
+
+    from repro_torch.core import prune as cp
+    from repro_torch.core.types import ANNConfig, init_state
+    from repro_torch.kernels import robust_prune as rp
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 7)
+    out = {}
+    for m, c in ((1, 192), (64, 65)):
+        # candidates at varied distances around each point p; slot 10 of a
+        # row repeats slot 3's vector, so distances tie
+        p = make_table(m, d, False, gen)
+        scale = torch.rand((m, c, 1), generator=gen, device="cuda") + 0.25
+        cv = p[:, None] + scale * make_table(m * c, d, False, gen).view(
+            m, c, d)
+        cv[:, 10] = cv[:, 3]
+        cfg = ANNConfig(dim=d, n_cap=m * c, r=r, alpha=alpha)
+        state = init_state(cfg, "cuda")
+        state.vectors.copy_(cv.reshape(m * c, d))
+        state.norms.copy_((state.vectors * state.vectors).sum(1))
+        state.active.fill_(True)
+        ids = torch.arange(m * c, device="cuda",
+                           dtype=torch.int32).view(m, c)
+        ids[torch.rand((m, c), generator=gen, device="cuda") < 0.1] = -1
+        seen = {}
+
+        def capture(*args):
+            seen["args"] = args
+            return rp.robust_prune_select(*args)
+
+        cp.robust_prune_select = capture
+        try:
+            rows = cp.robust_prune_rows(state, cfg, p, ids)
+        finally:
+            cp.robust_prune_select = rp.robust_prune_select
+        k_ids, d_p, pair = seen["args"][:3]
+        kern = rp.robust_prune_select_cuda(k_ids, d_p, pair, alpha, r)
+        plain = rp.robust_prune_select_plain(k_ids, d_p, pair, alpha, r)
+        torch.cuda.synchronize()
+        check(torch.equal(kern, plain) and torch.equal(rows, kern),
+              f"robust_prune ({m}, {c}): the kernel's rows differ from the "
+              f"plain loop's")
+        n0 = rp.LAUNCHES["robust_prune"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = cp.robust_prune_rows(state, cfg, p, ids)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(rp.LAUNCHES["robust_prune"] == n0 + 1
+              and torch.equal(again, rows),
+              f"robust_prune ({m}, {c}): not one launch a call")
+        picked = (kern >= 0).sum(1)
+        # ids and d_p once, one C-float row of the pair matrix a selection,
+        # the output
+        by = m * c * 8 + int(picked.sum()) * c * 4 + m * r * 4
+        bms, bby = bound_ms(by, 0)
+
+        def k7(_):
+            rp.robust_prune_select_cuda(k_ids, d_p, pair, alpha, r)
+
+        def rows_plain(_):
+            cp.robust_prune_select = rp.robust_prune_select_plain
+            try:
+                cp.robust_prune_rows(state, cfg, p, ids)
+            finally:
+                cp.robust_prune_select = rp.robust_prune_select
+
+        rec = {
+            "m": m, "c": c, "r": r, "d": d,
+            "selected_per_row": float(picked.float().mean()),
+            "ms": cuda_ms(k7, 50),
+            "device_ms": device_ms(k7, 50, ("robust_prune_kernel",)),
+            "plain_ms": cuda_ms(lambda _: rp.robust_prune_select_plain(
+                k_ids, d_p, pair, alpha, r), 10),
+            "bound_ms": bms, "bound_by": bby,
+            # the whole call: preparation and kernel 7, and the same
+            # preparation with the plain per-step loop (the earlier route)
+            "rows_ms": cuda_ms(lambda _: cp.robust_prune_rows(
+                state, cfg, p, ids), 50),
+            "rows_plain_ms": cuda_ms(rows_plain, 10),
+            "launches_per_call": 1, "host_syncs_per_call": 0,
+        }
+        log(f"robust_prune ({m}, {c}): {rec['ms']:.4f} ms, device "
+            f"{rec['device_ms']:.4f} ms, bound {bms:.6f} ms ({bby}), plain "
+            f"{rec['plain_ms']:.3f} ms; robust_prune_rows "
+            f"{rec['rows_ms']:.3f} ms (per-step loop "
+            f"{rec['rows_plain_ms']:.3f} ms); {rec['selected_per_row']:.1f} "
+            f"selected a row")
+        out[f"m{m}_c{c}"] = rec
+        del state
+    torch.cuda.empty_cache()
+    return out
 
 
 def hnsw_kernel_parity(gen, qb, vec, norms, nav, nav_w, ret_w, lanes_valid,
@@ -4736,6 +4844,7 @@ def main(argv=None):
     record["kernels"] = kernel_phase(args.seed)
     log(f"kernel parity: {time.perf_counter() - t0:.1f} s")
     log(json.dumps(record["kernels"]))
+    record["prune"] = prune_phase(args.seed)
     t0 = time.perf_counter()
     record["main"] = main_path(args.seed, args.live)
     record["main"]["wall_s"] = time.perf_counter() - t0
@@ -4831,6 +4940,21 @@ def main(argv=None):
                          "plain_ms", "bound_ms", "bound_by", "library_ms")}
             if name in ip else None,
         })
+    # kernel 7 replaces no TPU kernel: the reference runs RobustPrune's
+    # selection as a lax.fori_loop
+    rows.append({
+        "name": "robust_prune", "route": "cuda",
+        "source": "src/repro_torch/csrc/robust_prune.cu", "replaces": None,
+        "tpu_def": "src/repro/core/prune.py:76 (lax.fori_loop)",
+        "launches": record["main"]["launches"].get("robust_prune", 0),
+        "launches_by_path": {p: record[p]["launches"].get("robust_prune", 0)
+                             for p in ("main", "vmap", "quant", "fresh",
+                                       "local", "hnsw", "segments",
+                                       "serving", "sharded", "recsys",
+                                       "train", "lm", "mesh")},
+        "bitwise": True,
+        "shapes": record["prune"],
+    })
     print(json.dumps({"kernels": rows}))
     print(", ".join(smi))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

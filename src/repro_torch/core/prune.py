@@ -12,9 +12,9 @@ pair matrix computed up front; for wider sets (Alg 4's splice, C = r + r^2;
 HNSW's replace repair, C = m0 + m0^2) one (M, C) row of ``d(x_v, .)`` per
 selection step, as the reference computes it, so that memory stays at the
 gathered (M, C, D) rows.  Both give the same rows (bitwise on grid data).
-Once no row has a live candidate the remaining steps are no-ops, so the
-loop stops there (checked every ``_CHECK_EVERY`` steps: one host read
-each).
+The selection steps themselves are ``kernels/robust_prune.py``'s: on CUDA
+tensors the narrow formulation is one launch of kernel 7, with no host
+read; on CPU tensors, and for wider sets, the plain per-step loop.
 """
 from __future__ import annotations
 
@@ -23,14 +23,14 @@ from typing import Optional
 import torch
 
 from .. import trace
+from ..kernels.robust_prune import (MAX_C, robust_prune_select,
+                                    robust_prune_select_plain)
 from .backend import BIG, resolve_backend
-from .types import (INVALID, ANNConfig, GraphState, clip_ids, compact_row,
-                    mask_duplicates)
+from .types import INVALID, ANNConfig, GraphState, clip_ids, mask_duplicates
 
-_CHECK_EVERY = 8
 # candidate width above which the occlusion distances are computed one
 # (M, C) row per selection step instead of as one (M, C, C) matrix
-WIDE_PRUNE_C = 512
+WIDE_PRUNE_C = MAX_C
 
 
 def robust_prune_rows(state: GraphState, cfg: ANNConfig, p_vecs, cand_ids,
@@ -65,46 +65,22 @@ def robust_prune_rows(state: GraphState, cfg: ANNConfig, p_vecs, cand_ids,
                if cfg.metric == "l2" else -prod)
         if cand_dists is not None:
             d_p = torch.where(torch.isfinite(cand_dists), cand_dists, d_p)
-        big = torch.full_like(d_p, BIG)
-        d_p = torch.where(ids >= 0, d_p, big)
-        wide = c > WIDE_PRUNE_C
-        if not wide:
-            # adv[m, j, u] = alpha * d(x_u, x_j), x_j the selected candidate
-            adv = alpha_times(cfg, be.pair_dists(cfg, cand_vecs, cand_norms,
-                                                 cand_vecs, cand_norms))
-        rows_m = torch.arange(m, device=dev)
-        alive = ids >= 0
-        # selection order per row, INVALID where a step selects nothing; a
-        # stable compaction at the end is the reference's ``out[n_out]`` writes
-        sel = torch.full((m, cfg.r), INVALID, dtype=torch.int32, device=dev)
-        none = torch.full((m,), INVALID, dtype=torch.int32, device=dev)
-        for step in range(cfg.r):
-            if step % _CHECK_EVERY == 0 and not bool(alive.any()):
-                break
-            # first minimum over the live candidates; a row with none left
-            # gets +inf (every live candidate has a finite distance to p)
-            val, j = torch.where(alive, d_p, big).min(dim=1)
-            ok = val < BIG
-            jj = j[:, None]
-            sel[:, step] = torch.where(ok, ids.gather(1, jj)[:, 0], none)
-            if wide:
-                # one (M, C) row: alpha * d(x_u, x_j) for this step's x_j
-                keep = alpha_times(cfg, be.pair_dists(
-                    cfg, cand_vecs[rows_m, j][:, None],
-                    cand_norms.gather(1, jj),
-                    cand_vecs, cand_norms))[:, 0]
-            else:
-                keep = torch.gather(adv, 1,
-                                    jj[:, :, None].expand(-1, 1, c))[:, 0]
-            alive &= (keep > d_p) | ~ok[:, None]
-            alive.scatter_(1, jj, False)
-        return compact_row(sel)
+        d_p = torch.where(ids >= 0, d_p, torch.full_like(d_p, BIG))
+        if c > WIDE_PRUNE_C:
+            rows_m = torch.arange(m, device=dev)
 
+            def pair(j):
+                # one (M, C) row: d(x_j, x_u) for this step's x_j
+                return be.pair_dists(cfg, cand_vecs[rows_m, j][:, None],
+                                     cand_norms.gather(1, j[:, None]),
+                                     cand_vecs, cand_norms)[:, 0]
 
-def alpha_times(cfg: ANNConfig, d: torch.Tensor) -> torch.Tensor:
-    """``cfg.alpha * d`` in float32 (alpha rounded to float32 first, as the
-    reference's weakly typed scalar)."""
-    return torch.tensor(cfg.alpha, dtype=torch.float32, device=d.device) * d
+            return robust_prune_select_plain(ids, d_p, pair, cfg.alpha,
+                                             cfg.r)
+        # pair[m, j, u] = d(x_j, x_u)
+        pair = be.pair_dists(cfg, cand_vecs, cand_norms, cand_vecs,
+                             cand_norms)
+        return robust_prune_select(ids, d_p, pair, cfg.alpha, cfg.r)
 
 
 def robust_prune(state: GraphState, cfg: ANNConfig, p_vec, cand_ids,

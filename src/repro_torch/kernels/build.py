@@ -20,13 +20,14 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("gather_distance", "beam_hop", "topk_score", "quant_gather")
+SOURCES = ("gather_distance", "beam_hop", "topk_score", "quant_gather",
+           "robust_prune")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the entry points, (name, argtypes)
 SIGNATURES = {
     "gather_distance": [
@@ -43,6 +44,9 @@ SIGNATURES = {
     ],
     "quant_gather": [
         ("quant_gather_launch", [_P] * 6 + [_I] * 8 + [_P]),
+    ],
+    "robust_prune": [
+        ("robust_prune_launch", [_P] * 4 + [_I] * 3 + [_F, _P]),
     ],
 }
 

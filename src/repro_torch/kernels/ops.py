@@ -9,10 +9,12 @@ from __future__ import annotations
 from . import beam_hop as _beam_hop
 from . import gather_distance as _gather
 from . import quant_gather as _quant
-from . import ref, topk_score as _topk
+from . import ref
+from . import robust_prune as _prune
+from . import topk_score as _topk
 
 _COUNTERS = (_gather.LAUNCHES, _beam_hop.LAUNCHES, _topk.LAUNCHES,
-             _quant.LAUNCHES)
+             _quant.LAUNCHES, _prune.LAUNCHES)
 
 
 def launch_counts() -> dict:

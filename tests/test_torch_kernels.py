@@ -33,6 +33,7 @@ from repro_torch.kernels import beam_hop as tbh
 from repro_torch.kernels import gather_distance as tgd
 from repro_torch.kernels import quant_gather as tqg
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import robust_prune as trp
 from repro_torch.kernels import topk_score as ttk
 
 N_CAP = 250  # not a multiple of 32
@@ -338,6 +339,53 @@ def test_stable_topk_breaks_ties_low():
     d = torch.tensor([[3.0, 1.0, 1.0, 0.0, 1.0, float("inf")]])
     vals, idx = tref.stable_topk_smallest(d, 4)
     assert idx.tolist() == [[3, 1, 2, 4]]
+
+
+def _prune_inputs(metric, m, c, dev, seed):
+    """Kernel 7's inputs as ``core/prune.py::robust_prune_rows`` makes them,
+    on grid data with ties: ids i32[M, C] (distinct in a row, INVALID where
+    dead), d_p f32[M, C] (+inf where dead) and the pair matrix
+    f32[M, C, C].  The table holds equal vectors in distinct slots, and
+    d_p's columns 2 and 3 are equal; row 1 has no live candidate and row 2
+    ten, fewer than r."""
+    from repro_torch.core.distance import pair_dists
+
+    rng = np.random.default_rng(seed)
+    n_rows = 1024
+    vec = grid_data(n_rows, 24, seed)
+    vec[512:552] = vec[:40]
+    ids = np.stack([rng.permutation(n_rows)[:c] for _ in range(m)])
+    ids = ids.astype(np.int32)
+    ids[rng.random((m, c)) < 0.15] = -1
+    if m > 1:
+        ids[1] = -1
+    if m > 2:
+        ids[2, 10:] = -1
+    ids_d, vec_d, p_d = _to(dev, ids, vec, grid_data(m, 24, seed + 1))
+    cv = vec_d[ids_d.clamp(min=0).long()]                     # (M, C, D)
+    cn = (cv * cv).sum(-1)
+    prod = torch.bmm(cv, p_d.unsqueeze(-1)).squeeze(-1)
+    d_p = ((p_d * p_d).sum(1)[:, None] + cn - 2.0 * prod
+           if metric == "l2" else -prod)
+    if c > 3:
+        d_p[:, 3] = d_p[:, 2]
+    d_p = torch.where(ids_d >= 0, d_p, torch.full_like(d_p, float("inf")))
+    return ids_d, d_p, pair_dists(metric, cv, cn, cv, cn)
+
+
+def test_robust_prune_routes_cpu_to_plain():
+    """CPU tensors take the plain loop (no launch); the CUDA launcher
+    refuses them."""
+    ids, d_p, pair = _prune_inputs("l2", 3, 65, "cpu", 0)
+    n0 = trp.LAUNCHES["robust_prune"]
+    got = trp.robust_prune_select(ids, d_p, pair, 1.2, 64)
+    assert trp.LAUNCHES["robust_prune"] == n0
+    assert torch.equal(got, trp.robust_prune_select_plain(ids, d_p, pair,
+                                                          1.2, 64))
+    assert got.dtype == torch.int32 and got.shape == (3, 64)
+    assert (got[1] == -1).all() and (got[0] >= 0).any()
+    with pytest.raises(ValueError, match="CUDA"):
+        trp.robust_prune_select_cuda(ids, d_p, pair, 1.2, 64)
 
 
 # ---------------------------------------------------------------------------
@@ -867,3 +915,97 @@ def test_cuda_unsorted_beam_is_refused(cuda_device, quantized):
     bound(cb)
     with pytest.raises(RuntimeError, match="not sorted"):
         bound.active()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("alpha", [1.0, 1.2])
+@pytest.mark.parametrize("m,c", [(1, 192), (64, 65), (7, 512), (3, 5)])
+def test_cuda_robust_prune(cuda_device, metric, alpha, m, c):
+    """Kernel 7 against its plain version on the same card tensors and on a
+    CPU copy: the same rows, bit for bit (ties, dead rows and rows with
+    fewer live candidates than r included), in one launch."""
+    ids, d_p, pair = _prune_inputs(metric, m, c, cuda_device, c)
+    n0 = trp.LAUNCHES["robust_prune"]
+    got = trp.robust_prune_select(ids, d_p, pair, alpha, 64)
+    torch.cuda.synchronize()
+    assert trp.LAUNCHES["robust_prune"] == n0 + 1
+    want = trp.robust_prune_select_plain(ids, d_p, pair, alpha, 64)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), trp.robust_prune_select(
+        ids.cpu(), d_p.cpu(), pair.cpu(), alpha, 64))
+    assert (want >= 0).any()
+
+
+def _prune_graph(metric, dev):
+    """A grid-data graph (160 points, 20 of them equal to others, r = 12)
+    built by the port on the CPU, and the same state on ``dev``."""
+    from repro_torch.core import types as ttypes
+    from repro_torch.core.batched import insert_many_batched
+    from repro_torch.core.insert import insert_many
+    from torch_parity import small_kw
+
+    cfg = ttypes.ANNConfig(**small_kw(metric, n_cap=250))
+    xs = grid_data(160, 24, 3)
+    xs[140:] = xs[:20]
+    st = ttypes.init_state(cfg, "cpu")
+    st, _ = insert_many(st, cfg, t(xs[:24]))
+    st, _ = insert_many_batched(st, cfg, t(xs[24:]))
+    return cfg, st, type(st)(*(None if x is None else x.to(dev)
+                               for x in st))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_cuda_append_rows_matches_cpu(cuda_device, metric):
+    """One ``append_rows`` step on the card (its overflow prunes through
+    kernel 7) leaves the adjacency the same step leaves on the CPU."""
+    from repro_torch.core import edges as tedges
+
+    cfg, st, card = _prune_graph(metric, cuda_device)
+    vs = torch.nonzero(st.active).squeeze(1).to(torch.int32)
+    us = t(np.random.default_rng(5).permutation(vs.numpy())).to(torch.int32)
+    full = int(((st.adj[vs.long()] >= 0).sum(1) == cfg.r).sum())
+    assert full > 0
+    n0 = trp.LAUNCHES["robust_prune"]
+    tedges.append_rows(st, cfg, vs, us)
+    tedges.append_rows(card, cfg, vs.to(cuda_device), us.to(cuda_device))
+    torch.cuda.synchronize()
+    assert trp.LAUNCHES["robust_prune"] == n0 + 1
+    assert torch.equal(card.adj.cpu(), st.adj)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("c,with_dists", [(192, True), (13, False)])
+def test_cuda_prune_rows_one_launch_no_sync(cuda_device, c, with_dists):
+    """``robust_prune_rows`` on card tensors (an insert's candidate list,
+    and an overflow prune's rows) waits on the device nowhere: it runs
+    under the sync debug mode's "error" setting, launches kernel 7 once,
+    and returns the CPU's rows."""
+    from repro_torch.core import prune as tprune
+
+    cfg, st, card = _prune_graph("l2", cuda_device)
+    rng = np.random.default_rng(c)
+    m = 1 if c == 192 else 5
+    cand = t(rng.integers(-1, 160, size=(m, c)).astype(np.int32))
+    p_ids = cand[:, 0].contiguous()
+    dists = None
+    if with_dists:
+        d = rng.integers(0, 400, size=(m, c)).astype(np.float32) / 16
+        d[rng.random((m, c)) < 0.3] = np.inf
+        dists = t(d)
+    args = (st.vectors[p_ids.clamp(min=0).long()], cand, dists)
+    want = tprune.robust_prune_rows(st, cfg, *args, p_ids=p_ids)
+    args_d = tuple(None if x is None else x.to(cuda_device) for x in args)
+    p_ids_d = p_ids.to(cuda_device)
+    tprune.robust_prune_rows(card, cfg, *args_d, p_ids=p_ids_d)   # builds
+    torch.cuda.synchronize()
+    n0 = trp.LAUNCHES["robust_prune"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tprune.robust_prune_rows(card, cfg, *args_d, p_ids=p_ids_d)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert trp.LAUNCHES["robust_prune"] == n0 + 1
+    assert torch.equal(got.cpu(), want)
+    assert (want >= 0).any()

@@ -96,9 +96,11 @@ def test_update_streams_match_reference(metric, kind):
     _check(jg, tg, exact, "reinserts")
 
 
-def _graph(metric, kind):
+def _graph(metric, kind, dups=False):
     jcfg, tcfg = cfg_pair(**small_kw(metric))
     xs = _data(kind, 120, 24, metric, seed=2)
+    if dups:
+        xs[100:] = xs[20:40]            # equal vectors in distinct slots
     jg, _ = jins.insert_many(jtypes.init_state(jcfg), jcfg,
                              jnp.asarray(xs[:24]))
     jg, _ = jbat.insert_many_batched(jg, jcfg, jnp.asarray(xs[24:]))
@@ -111,23 +113,38 @@ def _graph(metric, kind):
 
 
 @pytest.mark.parametrize("metric", ["l2", "ip"])
-@pytest.mark.parametrize("with_dists", [False, True])
-def test_robust_prune_matches_reference(metric, with_dists):
-    jcfg, tcfg, jg, tg, xs = _graph(metric, "grid")
+@pytest.mark.parametrize("with_dists,m,c", [
+    (False, 1, 40), (True, 1, 40),
+    # the runbook cell's shapes: an insert's C = max_visits(l_build) and
+    # append_rows' overflow prunes, C = r + 1, several rows at once; the
+    # graph holds equal vectors in distinct slots (tied distances), and the
+    # given distances are small integers (more ties)
+    (False, 1, 192), (True, 1, 192), (False, 4, 65), (True, 4, 65),
+], ids=["False", "True", "False-c192", "True-c192", "False-m4-c65",
+        "True-m4-c65"])
+def test_robust_prune_matches_reference(metric, with_dists, m, c):
+    jcfg, tcfg, jg, tg, xs = _graph(metric, "grid", dups=c != 40)
     rng = np.random.default_rng(4)
-    cand = rng.integers(-1, 120, size=40).astype(np.int32)
-    cand[5] = cand[4]                          # duplicates
-    p = grid_data(1, 24, 8)[0]
+    cand = rng.integers(-1, 120, size=(m, c)).astype(np.int32)
+    cand[:, 5] = cand[:, 4]                    # duplicates
+    p = grid_data(m, 24, 8)
     dists = None
     if with_dists:
-        dists = rng.integers(0, 200, size=40).astype(np.float32)
-        dists[rng.random(40) < 0.3] = np.inf   # recomputed where not finite
-    jr = jprune.robust_prune(jg, jcfg, jnp.asarray(p), jnp.asarray(cand),
-                             None if dists is None else jnp.asarray(dists),
-                             p_id=jnp.int32(cand[0]))
-    tr = tprune.robust_prune(tg, tcfg, t(p), t(cand),
-                             None if dists is None else t(dists),
-                             p_id=int(cand[0]))
+        dists = rng.integers(0, 200, size=(m, c)).astype(np.float32)
+        dists[rng.random((m, c)) < 0.3] = np.inf  # recomputed where not finite
+    jr = np.stack([np.asarray(jprune.robust_prune(
+        jg, jcfg, jnp.asarray(p[i]), jnp.asarray(cand[i]),
+        None if dists is None else jnp.asarray(dists[i]),
+        p_id=jnp.int32(cand[i, 0]))) for i in range(m)])
+    if m == 1:
+        tr = tprune.robust_prune(tg, tcfg, t(p[0]), t(cand[0]),
+                                 None if dists is None else t(dists[0]),
+                                 p_id=int(cand[0, 0]))[None]
+    else:
+        tr = tprune.robust_prune_rows(tg, tcfg, t(p), t(cand),
+                                      None if dists is None else t(dists),
+                                      p_ids=t(cand[:, 0]))
+    assert (tr >= 0).any()
     assert_field(jr, tr, "pruned row")
 
 
